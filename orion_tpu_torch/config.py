@@ -1,17 +1,19 @@
-"""Configuration dataclasses for the port's serving slice.
+"""Configuration dataclasses of the port.
 
 The port's own copy of what it reads from ``orion_tpu.config``:
 ``ModelConfig`` whole (minus the JAX-only knobs: remat, scan_layers,
-int8 dense, sequence sharding, MoE), and the ``RolloutConfig`` fields
-the continuous-batching engine reads with its optional machinery off
-(no prefix cache, chunked prefill, speculative decoding, int8, host
-tier or repetition penalty — each a later slice).
+int8 dense, sequence sharding, MoE); the ``RolloutConfig`` fields the
+continuous-batching engine reads with its optional machinery off (no
+prefix cache, chunked prefill, speculative decoding, int8, host tier
+or repetition penalty — each a later slice); ``OptimizerConfig``; and
+the ``TrainConfig`` / ``GRPOConfig`` fields the sync GRPO loop reads.
+Names and defaults are the JAX package's.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 
 @dataclass
@@ -39,7 +41,12 @@ class ModelConfig:
     use_parallel_residual: bool = False  # neox style
     attn_bias: bool = False  # neox uses biases everywhere
     mlp_bias: bool = False
-    dtype: str = "bfloat16"  # compute and weight dtype
+    dtype: str = "bfloat16"  # compute dtype
+    # Master-weight dtype of a trained policy.  ``Transformer`` stores
+    # its weights in ``dtype`` unless told otherwise (the serving copy);
+    # the trainer's policy is built at ``param_dtype`` and computes in
+    # ``dtype`` all the same (cast at use).
+    param_dtype: str = "float32"
     # "auto": the hand flash kernel for Lq > 1 on CUDA, the reference
     # einsum elsewhere; "reference": always the reference.
     attention_impl: str = "auto"
@@ -113,6 +120,10 @@ class RolloutConfig:
     # Pages held back from admission as growth headroom for in-flight
     # sequences; -1 = auto: one page per engine slot.
     page_watermark: int = -1
+    # "simple" (the dense fixed-batch engine, not ported yet) |
+    # "continuous".  The JAX default; the port's trainer needs
+    # "continuous".
+    engine: str = "simple"
 
     def effective_min_new(self, eos_id) -> int:
         """min_new_tokens only binds when SOME terminator can fire."""
@@ -147,3 +158,64 @@ class RolloutConfig:
             raise ValueError(
                 f"min_new_tokens={self.min_new_tokens} outside "
                 f"[0, max_new_tokens={self.max_new_tokens}]")
+
+
+@dataclass
+class OptimizerConfig:
+    name: str = "adamw"
+    learning_rate: float = 1e-6
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    # Adam moment storage dtypes (None => param dtype); low-precision
+    # moments (the JAX package's adamw_lp) are not ported yet.
+    mu_dtype: Optional[str] = None
+    nu_dtype: Optional[str] = None
+    warmup_steps: int = 0
+    total_steps: int = 0  # 0 => constant lr after warmup
+    schedule: str = "constant"  # "constant" | "linear" | "cosine"
+
+
+@dataclass
+class TrainConfig:
+    """The trainer settings the sync loop reads (JAX names and
+    defaults)."""
+
+    seed: int = 0
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    rollout: RolloutConfig = field(default_factory=RolloutConfig)
+    total_iterations: int = 100
+    # Prompts per iteration (the size of each batch the prompt iterator
+    # yields); num_epochs passes of minibatch_size minibatches over the
+    # group-expanded batch.
+    rollout_batch_size: int = 32
+    minibatch_size: int = 8
+    num_epochs: int = 1
+    kl_coef: float = 0.05
+    # Storage dtype of the frozen reference snapshot (None => the
+    # policy's dtype).
+    ref_param_dtype: Optional[str] = None
+    log_every: int = 1
+    # Async mode (decoupled rollout and learner) is not ported yet.
+    async_mode: bool = False
+
+    def __post_init__(self) -> None:
+        if self.async_mode:
+            raise NotImplementedError(
+                "async_mode is not ported yet (ROADMAP.md, port modules)")
+
+
+@dataclass
+class GRPOConfig(TrainConfig):
+    group_size: int = 8  # completions per prompt
+    clip_ratio: float = 0.2
+    # "grpo" normalizes by the group std, "dr_grpo" skips it.
+    variant: str = "grpo"
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.variant not in ("grpo", "dr_grpo"):
+            raise ValueError(f"variant={self.variant!r}: 'grpo' or "
+                             "'dr_grpo'")

@@ -1,4 +1,4 @@
-// Kernel B, paged_decode: one decode step of attention over the paged
+// Kernel D, paged_decode: one decode step of attention over the paged
 // KV pool, through per-sequence block tables.
 //
 // Replaces: orion_tpu/ops/pallas/paged_attention.py,

@@ -6,11 +6,16 @@ int8 dense, no scan).
 - ``arch="neox"``: LayerNorm with bias, parallel attention+MLP residual,
   partial rotary, biased projections, exact GELU.
 
-Weights are held in ``cfg.dtype`` (the JAX engine casts its f32 master
-tree to the compute dtype once at load; the port stores it so).  The
+Every module computes in ``cfg.dtype`` whatever dtype its weights are
+stored in: each weight is cast at use (flax ``Dense(dtype=bf16,
+param_dtype=f32)``; no autocast).  A serving model stores its weights
+in ``cfg.dtype`` — the JAX engine casts its f32 master tree to the
+compute dtype once at load — so there every cast is a no-op; a
+trainer's policy stores them in ``cfg.param_dtype`` (f32 masters, bf16
+compute) and gradients flow back through the casts.  The
 forward takes an optional paged cache — a per-layer list of
 ``{"k_pages", "v_pages", "block_tables"}`` — written IN PLACE: Lq == 1
-decodes through the paged kernel (kernel B), Lq > 1 prefills through
+decodes through the paged kernel (kernel D), Lq > 1 prefills through
 the gathered pages and ``attention()`` (kernel A on CUDA).  Logits come
 back in f32.
 """
@@ -32,6 +37,31 @@ from orion_tpu_torch.ops.paged_kv import (gather_paged_kv, is_paged,
 from orion_tpu_torch.ops.rotary import apply_rotary
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (input, weight and
+    bias cast at use)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 compute_dtype: torch.dtype, **kw):
+        super().__init__(in_features, out_features, bias=bias, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose weight and bias are cast to the input's
+    dtype at use (PyTorch's kernel takes its statistics in f32)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
+
+
 class RMSNorm(nn.Module):
     """RMSNorm computed in f32, cast back (flax ``nn.RMSNorm``)."""
 
@@ -49,7 +79,13 @@ class RMSNorm(nn.Module):
 def _norm(cfg: ModelConfig, **kw) -> nn.Module:
     if cfg.arch == "llama":
         return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
-    return nn.LayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps, **kw)
+    return LayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps, **kw)
+
+
+def _linear(cfg: ModelConfig, in_features: int, out_features: int,
+            bias: bool, **kw) -> Linear:
+    return Linear(in_features, out_features, bias,
+                  torch_dtype(cfg.dtype), **kw)
 
 
 class Attention(nn.Module):
@@ -58,10 +94,10 @@ class Attention(nn.Module):
         self.cfg = cfg
         H, Hkv, D, E = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                         cfg.hidden_size)
-        self.q_proj = nn.Linear(E, H * D, bias=cfg.attn_bias, **kw)
-        self.k_proj = nn.Linear(E, Hkv * D, bias=cfg.attn_bias, **kw)
-        self.v_proj = nn.Linear(E, Hkv * D, bias=cfg.attn_bias, **kw)
-        self.o_proj = nn.Linear(H * D, E, bias=cfg.attn_bias, **kw)
+        self.q_proj = _linear(cfg, E, H * D, cfg.attn_bias, **kw)
+        self.k_proj = _linear(cfg, E, Hkv * D, cfg.attn_bias, **kw)
+        self.v_proj = _linear(cfg, E, Hkv * D, cfg.attn_bias, **kw)
+        self.o_proj = _linear(cfg, H * D, E, cfg.attn_bias, **kw)
 
     def forward(self, x, positions, layer_cache: Optional[dict] = None):
         """x [B, L, E]; positions [B, L] absolute positions.  With a
@@ -104,9 +140,9 @@ class MLP(nn.Module):
         self.arch = cfg.arch
         E, I = cfg.hidden_size, cfg.intermediate_size
         if cfg.arch == "llama":
-            self.gate_proj = nn.Linear(E, I, bias=cfg.mlp_bias, **kw)
-        self.up_proj = nn.Linear(E, I, bias=cfg.mlp_bias, **kw)
-        self.down_proj = nn.Linear(I, E, bias=cfg.mlp_bias, **kw)
+            self.gate_proj = _linear(cfg, E, I, cfg.mlp_bias, **kw)
+        self.up_proj = _linear(cfg, E, I, cfg.mlp_bias, **kw)
+        self.down_proj = _linear(cfg, I, E, cfg.mlp_bias, **kw)
 
     def forward(self, x):
         if self.arch == "llama":
@@ -137,7 +173,9 @@ class Transformer(nn.Module):
     (or [B, T, V] at ``logits_positions`` [B, T]).
 
     ``device=None`` means the card (raises without one); tests pass
-    ``device="cpu"``.  ``dtype`` defaults to ``cfg.dtype``.  The
+    ``device="cpu"``.  ``dtype`` is the weights' storage dtype: default
+    ``cfg.dtype`` (a serving copy); a trainer's policy passes
+    ``cfg.param_dtype``.  Compute runs in ``cfg.dtype`` either way.  The
     weights are a seeded random init (``seed``, drawn by the device's
     own generator, so CPU and CUDA draws differ), as the JAX package's
     ``init_params`` draws them: normal(0.02) projections and
@@ -157,8 +195,8 @@ class Transformer(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = _norm(cfg, **kw)
         self.lm_head = (None if cfg.tie_word_embeddings else
-                        nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                  bias=False, **kw))
+                        _linear(cfg, cfg.hidden_size, cfg.vocab_size,
+                                False, **kw))
         self.to_empty(device=dev)
         self.reset_parameters(seed)
 
@@ -167,11 +205,11 @@ class Transformer(nn.Module):
         gen = torch.Generator(device=self.embed.weight.device)
         gen.manual_seed(seed)
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
+            if isinstance(mod, (Linear, nn.Embedding)):
                 mod.weight.normal_(0.0, 0.02, generator=gen)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, (nn.LayerNorm, RMSNorm)):
+            elif isinstance(mod, (LayerNorm, RMSNorm)):
                 mod.weight.fill_(1.0)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
@@ -179,7 +217,7 @@ class Transformer(nn.Module):
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[List[dict]] = None,
                 logits_positions: Optional[torch.Tensor] = None):
-        x = self.embed(input_ids)
+        x = self.embed(input_ids).to(torch_dtype(self.cfg.dtype))
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, cache[i] if cache is not None else None)
         x = self.final_norm(x)
@@ -188,7 +226,7 @@ class Transformer(nn.Module):
                 -1, -1, x.shape[-1])
             x = torch.gather(x, 1, idx)
         if self.lm_head is None:
-            logits = x @ self.embed.weight.T
+            logits = x @ self.embed.weight.to(x.dtype).T
         else:
             logits = self.lm_head(x)
         return logits.to(torch.float32)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-KERNELS = ("flash_fwd", "paged_decode")
+KERNELS = ("flash_fwd", "paged_decode", "flash_bwd_dq", "flash_bwd_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,16 +1,20 @@
-"""Causal flash-attention forward: the wrapper around kernel A
-(``csrc/flash_fwd.cu``) and its plain PyTorch version.
+"""Causal flash attention: the wrappers around kernel A (forward,
+``csrc/flash_fwd.cu``) and kernels B and C (backward,
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``), the autograd
+Function that joins them, and their plain PyTorch versions.
 
-Replaces ``orion_tpu/ops/pallas/flash_attention.py`` ``_fwd`` /
-``_fwd_kernel`` as reached by ``flash_attention_gqa`` (slot j holds
-absolute position j).  At the slice's prefill shapes the least time
-on this card is set by bytes (~140 flops per byte, under the bf16
-balance point); the first version computes on the CUDA cores, far
-above that bound, and skips every kv tile past a q tile's causal
-frontier — see the source's header for the design.
+Replaces ``orion_tpu/ops/pallas/flash_attention.py``: ``_fwd`` /
+``_fwd_kernel`` (A), ``_dq_call`` / ``_dq_kernel`` (B) and
+``_dkv_call`` / ``_dkv_kernel`` plus ``_bwd_impl``'s GQA group-sum (C),
+as reached by ``flash_attention_gqa`` and its ``custom_vjp`` (slot j
+holds absolute position j).  At the slice's shapes the least time on
+this card is set by bytes (~140 flops per byte for A, under the bf16
+balance point); the first versions compute on the CUDA cores, far
+above that bound, and skip every tile past the causal frontier — see
+each source's header for its design.
 
-The wrapper runs the plain version only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.
+Each wrapper runs the plain version only for CPU tensors; for a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +30,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 
 
+def _plain_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in f32 (f64 for f64 inputs, which
+    ``torch.autograd.gradcheck`` needs)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _valid(q_positions: torch.Tensor, lk: int) -> torch.Tensor:
+    """[B, Lq, Lk] bool: kv slot j is valid for the query at position p
+    iff j <= p."""
+    slots = torch.arange(lk, device=q_positions.device)
+    return slots[None, None, :] <= q_positions[:, :, None].to(slots.dtype)
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, q_positions: torch.Tensor,
                               scale: float, return_lse: bool = False):
@@ -39,16 +56,15 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    qg = q.reshape(B, Lq, Hkv, g, D).to(torch.float32) * scale
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
-    slots = torch.arange(Lk, device=q.device)
-    valid = slots[None, None, :] <= q_positions[:, :, None].to(slots.dtype)
-    valid = valid[:, None, None, :, :]                  # [B,1,1,Lq,Lk]
+    f = _plain_dtype(q)
+    qg = q.reshape(B, Lq, Hkv, g, D).to(f) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(f))
+    valid = _valid(q_positions, Lk)[:, None, None, :, :]   # [B,1,1,Lq,Lk]
     s = s.masked_fill(~valid, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * valid
     lsum = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(f))
     out = out / lsum.permute(0, 3, 1, 2, 4)
     out = out.reshape(B, Lq, H, D).to(q.dtype)
     if not return_lse:
@@ -57,47 +73,118 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def _backward_plain(q, k, v, q_positions, dout, lse, delta, scale):
+    """The backward's math in f32, per q-head and then group-summed
+    over each GQA group (``_bwd_impl``).  Returns (dq, dk, dv) in
+    q's, k's and v's dtypes."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    f = _plain_dtype(q)
+    qs = q.to(f) * scale
+    kr = k.to(f).repeat_interleave(g, dim=2)              # [B, Lk, H, D]
+    vr = v.to(f).repeat_interleave(g, dim=2)
+    do = dout.to(f)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kr)
+    # Masked slots go to -inf before the exp, so a row with no valid key
+    # (lse ~ -1e30) gives p = 0, never exp of a huge number.
+    s = s.masked_fill(~_valid(q_positions, Lk)[:, None], float("-inf"))
+    p = torch.exp(s - lse.to(f)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vr)
+    ds = p * (dp - delta.to(f)[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)          # carries scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dk = dk.reshape(B, Lk, Hkv, g, D).sum(dim=3)
+    dv = dv.reshape(B, Lk, Hkv, g, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_delta(out: torch.Tensor, dout: torch.Tensor
+                          ) -> torch.Tensor:
+    """rowsum(dO * O) [B, H, Lq] in f32 — plain elementwise torch, as the
+    JAX package computes it in plain XLA outside Pallas."""
+    f = _plain_dtype(out)
+    return (dout.to(f) * out.to(f)).sum(dim=-1).transpose(1, 2)
+
+
+def flash_attention_backward_reference(q, k, v, q_positions, out, lse,
+                                       dout, scale):
+    """Plain PyTorch version of the whole backward (kernels B and C):
+    (dq, dk, dv) for the forward's O [B, Lq, H, D] and LSE [B, H, Lq]
+    under the cotangent dout, in f32 per q-head, group-summed, cast to
+    the input dtypes.  Used by the tests and by the CPU path only."""
+    return _backward_plain(q, k, v, q_positions, dout, lse,
+                           flash_attention_delta(out, dout), scale)
+
+
 def _check_inputs(q, k, v, q_positions) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_fwd: q {tuple(q.shape)}, k "
+        raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     B, Lq, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
-        raise ValueError("flash_fwd: k/v must be [B, Lk, Hkv, D] with "
-                         "Hkv dividing H")
+        raise ValueError("flash attention: k/v must be [B, Lk, Hkv, D] "
+                         "with Hkv dividing H")
     if q_positions.shape != (B, Lq):
-        raise ValueError(f"flash_fwd: q_positions {tuple(q_positions.shape)}"
-                         f" != {(B, Lq)}")
+        raise ValueError(f"flash attention: q_positions "
+                         f"{tuple(q_positions.shape)} != {(B, Lq)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention: unsupported device "
+                         f"{q.device}")
+
+
+def _check_backward_inputs(q, k, v, q_positions, dout, lse, delta) -> None:
+    _check_inputs(q, k, v, q_positions)
+    B, Lq, H, _ = q.shape
+    if dout.shape != q.shape:
+        raise ValueError(f"flash backward: dout {tuple(dout.shape)} != q "
+                         f"{tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Lq):
+            raise ValueError(f"flash backward: {name} {tuple(t.shape)} "
+                             f"!= {(B, H, Lq)}")
+
+
+def _kernel_ready(name, q, k, v, *others) -> None:
+    """What every kernel of this module refuses: a head dim or dtype it
+    has no instance for, mixed devices, a non-contiguous head dim."""
+    D = q.shape[3]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head_dim {D} not in {_HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} kernel: dtypes {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}; needs one of {list(_DTYPES)}")
+    for t in (k, v, *others):
+        if t.device != q.device:
+            raise ValueError(f"{name} kernel: inputs on different devices")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name} kernel: head dim must be contiguous")
+
+
+def _fn(lib, symbol: str, n_ptr: int, n_strides: int):
+    """The ctypes entry ``symbol``: n_ptr pointers, (B, Lq, Lk, H, Hkv,
+    D), n_strides strides, scale, dtype code, stream."""
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * n_strides
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
 
 
 def _launch(q, k, v, q_positions, scale, with_lse):
     """Run kernel A on CUDA tensors; raises on anything it does not take."""
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel: head_dim {D} not in "
-                         f"{_HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_fwd kernel: dtypes {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}; needs one of {list(_DTYPES)}")
-    for t in (k, v, q_positions):
-        if t.device != q.device:
-            raise ValueError("flash_fwd kernel: inputs on different "
-                             "devices")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_fwd kernel: head dim must be contiguous")
+    _kernel_ready("flash_fwd", q, k, v, q_positions)
     qpos = q_positions.to(torch.int32).contiguous()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if B == 0 or Lq == 0 or H == 0:
         return out, lse
-    lib = cuda_build.library("flash_fwd")
-    fn = lib.orion_flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = _fn(cuda_build.library("flash_fwd"), "orion_flash_fwd", 6, 12)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
              out.data_ptr(), lse.data_ptr() if lse is not None else None,
              B, Lq, Lk, H, Hkv, D,
@@ -109,6 +196,120 @@ def _launch(q, k, v, q_positions, scale, with_lse):
     return out, lse
 
 
+def _backward_operands(name, q, k, v, q_positions, dout, lse, delta):
+    """Checks shared by kernels B and C; returns the operands as the
+    kernels read them.  q, k, v and dout are read through their strides
+    (head dim contiguous); a dout whose head dim is strided (autograd
+    may hand one over) is copied contiguous.  Positions, LSE and delta
+    are made contiguous int32 / f32."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    if dout.dtype != q.dtype:
+        raise ValueError(f"{name} kernel: dout dtype {dout.dtype} != q "
+                         f"dtype {q.dtype}")
+    _kernel_ready(name, q, k, v, q_positions, dout, lse, delta)
+    return (dout, q_positions.to(torch.int32).contiguous(),
+            lse.to(torch.float32).contiguous(),
+            delta.to(torch.float32).contiguous())
+
+
+def flash_bwd_dq(q, k, v, q_positions, dout, lse, delta, scale):
+    """dQ [B, Lq, H, D] in q.dtype (kernel B): with P = exp(q·scale·Kᵀ −
+    LSE) on the valid slots, dP = dO·Vᵀ and dS = P∘(dP − delta),
+    dQ = scale·dS·K.  CUDA tensors go through kernel B; CPU tensors
+    through the plain version."""
+    _check_backward_inputs(q, k, v, q_positions, dout, lse, delta)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, q_positions, dout, lse, delta,
+                               scale)[0]
+    dout, qpos, lse, delta = _backward_operands(
+        "flash_bwd_dq", q, k, v, q_positions, dout, lse, delta)
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if dq.numel() == 0:
+        return dq
+    fn = _fn(cuda_build.library("flash_bwd_dq"), "orion_flash_bwd_dq", 8,
+             15)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             qpos.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), B, Lq, Lk, H, Hkv, D,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *dout.stride()[:3], *dq.stride()[:3], float(scale),
+             _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, q_positions, dout, lse, delta, scale):
+    """(dK, dV) [B, Lk, Hkv, D] in k's / v's dtype (kernel C): dV =
+    Σ_i Pᵀ·dO and dK = Σ_i dSᵀ·(q·scale), summed over the query heads of
+    each GQA group.  CUDA tensors go through kernel C; CPU tensors
+    through the plain version."""
+    _check_backward_inputs(q, k, v, q_positions, dout, lse, delta)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, q_positions, dout, lse, delta,
+                               scale)[1:]
+    dout, qpos, lse, delta = _backward_operands(
+        "flash_bwd_dkv", q, k, v, q_positions, dout, lse, delta)
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if dk.numel() == 0:
+        return dk, dv
+    if Lq == 0:
+        return dk.zero_(), dv.zero_()
+    fn = _fn(cuda_build.library("flash_bwd_dkv"), "orion_flash_bwd_dkv", 9,
+             18)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             qpos.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H, Hkv, D,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+             float(scale), _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(err, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_gqa`` under autograd (the JAX ``custom_vjp``:
+    ``_vjp_fwd`` / ``_vjp_bwd``).  Forward: kernel A with LSE (the plain
+    version on the CPU), saving q, k, v, positions, O and LSE.
+    Backward: delta = rowsum(dO ∘ O) in f32, then kernels B and C (the
+    plain versions on the CPU).  Returns (O, LSE); LSE carries no
+    gradient.  ``custom_fwd``/``custom_bwd`` run the backward under the
+    forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, q_positions, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, q_positions,
+                                                 scale, return_lse=True)
+        else:
+            out, lse = _launch(q, k, v, q_positions, scale, True)
+        ctx.save_for_backward(q, k, v, q_positions, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout, _dlse):
+        q, k, v, q_positions, out, lse = ctx.saved_tensors
+        delta = flash_attention_delta(out, dout)
+        dq = flash_bwd_dq(q, k, v, q_positions, dout, lse, delta,
+                          ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, q_positions, dout, lse, delta,
+                               ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_positions: torch.Tensor, scale: float,
                         return_lse: bool = False):
@@ -118,17 +319,23 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Lq] absolute positions — the query at position p attends kv
     slots j <= p.  Returns [B, Lq, H, D] in q.dtype (plus LSE [B, H, Lq]
     f32 with ``return_lse``).  CUDA tensors go through kernel A (D in
-    64/128/256, bf16 or f32); CPU tensors through the plain version."""
+    64/128/256, bf16 or f32); CPU tensors through the plain version.
+    When grad is enabled and q, k or v requires it, the call goes
+    through :class:`FlashAttention`, whose backward is kernels B and
+    C."""
     _check_inputs(q, k, v, q_positions)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, q_positions, scale,
-                                         return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_gqa: unsupported device "
-                         f"{q.device}")
-    out, lse = _launch(q, k, v, q_positions, scale, return_lse)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, q_positions, scale)
+    elif q.device.type == "cpu":
+        out, lse = flash_attention_reference(q, k, v, q_positions, scale,
+                                             return_lse=True)
+    else:
+        out, lse = _launch(q, k, v, q_positions, scale, return_lse)
     return (out, lse) if return_lse else out
 
 
-# Kernel launches since the count was last set to 0.
+# Kernel launches since each count was last set to 0.
 flash_attention_gqa.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

@@ -1,4 +1,4 @@
-"""Paged-KV decode attention: the wrapper around kernel B
+"""Paged-KV decode attention: the wrapper around kernel D
 (``csrc/paged_decode.cu``) and its plain PyTorch version.
 
 Replaces ``orion_tpu/ops/pallas/paged_attention.py``
@@ -32,7 +32,7 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                                      block_tables: torch.Tensor,
                                      seq_lens: torch.Tensor,
                                      scale: float) -> torch.Tensor:
-    """Plain PyTorch version of kernel B (gather + masked softmax in
+    """Plain PyTorch version of kernel D (gather + masked softmax in
     f32), mirroring ``paged_decode_attention_reference`` of the JAX
     package: head h reads kv head h // n_rep, slots idx >= seq_len are
     masked, the normaliser is clamped at 1e-30.  Returns [B, H, D] in
@@ -64,7 +64,7 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale):
-    """Run kernel B on CUDA tensors; raises on anything it does not take."""
+    """Run kernel D on CUDA tensors; raises on anything it does not take."""
     B, H, D = q.shape
     _, Hkv, ps, _ = k_pages.shape
     if D not in _HEAD_DIMS:
@@ -118,7 +118,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     [num_pages, Hkv, ps, D]; block_tables [B, max_pages] int32; seq_lens
     [B] int32 — valid tokens including the current one (a length past
     max_pages * ps counts only the table's pages).  Returns
-    [B, H, D] in q.dtype.  CUDA tensors go through kernel B; CPU tensors
+    [B, H, D] in q.dtype.  CUDA tensors go through kernel D; CPU tensors
     through the plain version."""
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(

@@ -25,7 +25,10 @@ import time
 # Kernel-name classes, first match wins.
 CLASSES = (
     ("flash_fwd", r"flash_fwd_kernel"),
+    ("flash_bwd_dq", r"flash_bwd_dq_kernel"),
+    ("flash_bwd_dkv", r"flash_bwd_dkv_kernel"),
     ("paged_decode", r"paged_decode_kernel"),
+    ("optimizer", r"multi_tensor_apply"),
     ("matmul", r"gemm|gemv|sm90_|cutlass|cublas|nvjet|splitK"),
     ("sort_topk_reduce", r"[Rr]educe|[Ss]oftmax|argmax|[Ss]ort|topk"),
     ("index_scatter_gather", r"[Ii]ndex|[Ss]catter|[Gg]ather"),
@@ -55,7 +58,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from orion_tpu_torch.smoke import smoke_engine_and_requests
@@ -63,10 +65,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_engine: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name()
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
 
     _, _, eng, reqs = smoke_engine_and_requests(args.requests, args.seed)
@@ -80,12 +79,33 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         pwall, _ = _serve(eng, reqs)
+    out = device_breakdown(prof, pwall)
+    print(json.dumps({"run": "profiled", "card": card, **out}), flush=True)
+    return 0 if out["device_busy_ms"] else 1
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_breakdown(prof, wall_s: float) -> dict:
+    """Device time by kernel class and the top kernels of a finished
+    ``torch.profiler`` run, and its device idle share against
+    ``wall_s`` (one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+
     by_class: dict = {}
     kernels = []
     for ev in prof.key_averages():
-        # Kernel events only: an operator's entry would count its
-        # kernels' time a second time.
-        if ev.device_type != DeviceType.CUDA:
+        # Kernel events only: an operator's entry, or a user annotation
+        # such as the optimizer's ``Optimizer.step#AdamW.step`` range on
+        # the device, would count its kernels' time a second time.
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = max(getattr(ev, "device_time_total", 0),
                      getattr(ev, "self_device_time_total", 0))
@@ -97,16 +117,15 @@ def main(argv=None) -> int:
         kernels.append((dev_us / 1e3, ev.count, ev.key[:90]))
     busy_ms = sum(by_class.values())
     kernels.sort(reverse=True)
-    print(json.dumps({
-        "run": "profiled", "card": card, "wall_s": pwall,
+    return {
+        "wall_s": wall_s,
         "device_busy_ms": busy_ms if busy_ms else None,
-        "device_idle_share": (1 - busy_ms / 1e3 / pwall) if busy_ms
+        "device_idle_share": (1 - busy_ms / 1e3 / wall_s) if busy_ms
         else None,
         "by_class_ms": dict(sorted(by_class.items(),
                                    key=lambda kv: -kv[1])),
         "top_kernels": [{"ms": ms, "calls": n, "name": name}
-                        for ms, n, name in kernels[:15]]}), flush=True)
-    return 0 if busy_ms else 1
+                        for ms, n, name in kernels[:15]]}
 
 
 if __name__ == "__main__":

@@ -23,7 +23,8 @@ its setting off-TPU); sampling draws from a ``torch.Generator``.  The
 optional machinery of the JAX engine — prefix cache, chunked prefill,
 speculative decoding, k-clone groups, int8 pools and weights, host
 tier, repetition penalty, tenants, streaming, meshes — is not ported
-yet.
+yet.  ``generate_batch`` is the trainer-facing surface: a padded
+``GenerationResult`` for a batch of prompts.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ import torch
 
 from orion_tpu_torch.config import ModelConfig, RolloutConfig
 from orion_tpu_torch.device import resolve_device
+from orion_tpu_torch.ops.logprobs import pack_sequences
 from orion_tpu_torch.ops.sampling import (eos_forbid_mask, is_stop_token,
                                           sample_tokens)
+from orion_tpu_torch.rollout.engine import GenerationResult
 from orion_tpu_torch.runtime import Scheduler
 
 # slot lifecycle: empty -> decoding (admitted, prompt prefilled, first
@@ -70,6 +73,11 @@ class ContinuousBatchingEngine:
     ``model`` is the port's :class:`~orion_tpu_torch.models.Transformer`
     (its weights are the engine's).  ``device=None`` means the card and
     raises without one; the model is moved to the engine's device."""
+
+    # k-clone group admission (one prefill and shared prompt pages per
+    # group) is not ported yet: a group trainer hands over the batch
+    # already repeated in the i*k+j layout, which gives the same rows.
+    supports_groups = False
 
     def __init__(self, model, model_cfg: ModelConfig, cfg: RolloutConfig,
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
@@ -116,6 +124,10 @@ class ContinuousBatchingEngine:
         self._admit_counter = 0
         self._gen: Optional[torch.Generator] = None
         self.preemptions = 0         # recompute-restarts
+        # Model forwards since construction: one per prefill wave and one
+        # per lockstep decode step (each runs every layer once).
+        self.prefill_forwards = 0
+        self.decode_steps = 0
         # Time to first token per request id: submit to the end of the
         # wave that sampled the first token (a wave ends in a device
         # sync, so this is device-complete time).  The caller reads and
@@ -221,6 +233,43 @@ class ContinuousBatchingEngine:
             out.extend(self.step())
         return out
 
+    def generate_batch(self, prompt_ids, prompt_lens, seed: int
+                       ) -> GenerationResult:
+        """Run a batch of prompts as a request stream and pack the
+        completions into a padded :class:`GenerationResult` (the JAX
+        engine's ``generate_batch`` without group admission).
+
+        prompt_ids [B, P] right-padded, prompt_lens [B]; row i of the
+        result is prompt i's completion, sampled from the stream seeded
+        with ``seed``; completions are padded to cfg.max_new_tokens."""
+        T = self.cfg.max_new_tokens
+        prompt_ids = np.asarray(prompt_ids, np.int32)
+        prompt_lens = np.asarray(prompt_lens, np.int32)
+        B = prompt_ids.shape[0]
+        by_id = {r.req_id: r for r in self.generate(
+            [(i, prompt_ids[i, :prompt_lens[i]]) for i in range(B)],
+            seed=seed)}
+        tokens = np.full((B, T), self.pad, np.int32)
+        logps = np.zeros((B, T), np.float32)
+        plogps = np.zeros((B, T), np.float32)
+        comp_len = np.zeros((B,), np.int32)
+        for i in range(B):
+            r = by_id[i]
+            n = len(r.tokens)
+            tokens[i, :n] = r.tokens
+            logps[i, :n] = r.logprobs
+            plogps[i, :n] = r.policy_logprobs
+            comp_len[i] = n
+        mask = (np.arange(T)[None, :] < comp_len[:, None]).astype(np.float32)
+        sequences = pack_sequences(torch.from_numpy(prompt_ids),
+                                   torch.from_numpy(prompt_lens),
+                                   torch.from_numpy(tokens)).numpy()
+        return GenerationResult(
+            sequences=sequences, completions=tokens,
+            completion_mask=mask, completion_lens=comp_len,
+            logprobs=logps, policy_logprobs=plogps,
+            prompt_lens=prompt_lens, total_lens=prompt_lens + comp_len)
+
     # -- one wave ---------------------------------------------------------
     def _step_wave(self) -> List[CompletedRequest]:
         admitted = self.sched.admit()
@@ -286,6 +335,7 @@ class ContinuousBatchingEngine:
         # Vocab projection only at the last real prompt token.
         logits = self.model(prompt, positions, cache,
                             logits_positions=(plen - 1)[:, None])[:, 0]
+        self.prefill_forwards += 1
         kw = {}
         if cfg.effective_min_new(self.eos) > 0:
             # Nothing generated yet: every terminator is suppressed.
@@ -320,6 +370,7 @@ class ContinuousBatchingEngine:
             # and predict the next token.
             logits = self.model(st["cur_tok"][:, None],
                                 st["lengths"][:, None], cache)[:, 0]
+            self.decode_steps += 1
             kw = {}
             if min_new > 0:
                 kw["forbid"] = eos_forbid_mask(

@@ -161,6 +161,21 @@ def test_submit_step_service_surface(weights):
         eng.generate([(9, np.ones(13, np.int32))])
 
 
+def test_forward_counters(weights):
+    """``prefill_forwards`` counts prefill waves and ``decode_steps``
+    lockstep decode steps: the counts chip_smoke.py holds the kernels'
+    launches against."""
+    rng = np.random.RandomState(6)
+    p = [rng.randint(1, 256, n).astype(np.int32) for n in (6, 9, 3)]
+    eng = _port_engine(weights)
+    # The prefill samples the first token; 8 more take 2 segments of 4.
+    eng.generate([(0, p[0], 9)])
+    assert (eng.prefill_forwards, eng.decode_steps) == (1, 8)
+    # Both requests take the two slots in one wave.
+    eng.generate([(1, p[1], 5), (2, p[2], 5)])
+    assert (eng.prefill_forwards, eng.decode_steps) == (2, 12)
+
+
 def test_min_new_tokens_and_stop_ids_match_jax(weights):
     """EOS and a stop id suppressed until 3 tokens are generated, then
     terminating: same greedy completions as the JAX engine.  The eos

@@ -9,15 +9,19 @@ Tolerances: f32 kernels atol 1e-4 (f32 sums in another order over up
 to a few hundred keys).  bf16 kernels: against an f32 evaluation of the
 plain version, no worse than 2x the bf16 plain version's error (both
 compute in f32 from the same bf16 inputs; only the output rounding and
-the summation order differ).
+the summation order differ).  Model gradients through kernels A, B and
+C: within 1e-4 of their largest entry of the same f32 model with the
+plain (reference) attention.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from orion_tpu_torch.ops.flash_attention import (flash_attention_gqa,
-                                                 flash_attention_reference)
+from orion_tpu_torch.ops.flash_attention import (
+    flash_attention_backward_reference, flash_attention_delta,
+    flash_attention_gqa, flash_attention_reference, flash_bwd_dkv,
+    flash_bwd_dq)
 from orion_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 
@@ -101,6 +105,104 @@ def test_kernels_refuse_unsupported_head_dim():
     pos = torch.zeros(1, 4, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_gqa(q, q, q, pos, 0.25)
+
+
+def _backward_case(shape, dtype):
+    """Inputs, kernel A's O and LSE, and a cotangent for one FLASH
+    shape; the first row's first query has no valid key."""
+    B, Lq, Lk, H, Hkv, D, offsets = shape
+    rng = np.random.RandomState(B * Lq + D + 1)
+    if offsets is None:
+        offsets = rng.randint(0, Lk - Lq + 1, B)
+    pos = torch.from_numpy((np.asarray(offsets)[:, None]
+                            + np.arange(Lq)[None, :]).astype(np.int32))
+    pos[0, 0] = -1
+    q, k, v, dout = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                     .cuda().to(dtype)
+                     for s in ((B, Lq, H, D), (B, Lk, Hkv, D),
+                               (B, Lk, Hkv, D), (B, Lq, H, D)))
+    pos = pos.cuda()
+    scale = D ** -0.5
+    out, lse = flash_attention_gqa(q, k, v, pos, scale, return_lse=True)
+    return q, k, v, pos, dout, out, lse, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH, ids=lambda s: "x".join(
+    str(x) for x in s[:6]))
+def test_flash_backward_kernels_match_plain(shape, dtype):
+    """Kernels B (dq) and C (dk, dv) against the plain backward on the
+    same O and LSE, GQA shapes included."""
+    q, k, v, pos, dout, out, lse, scale = _backward_case(shape, dtype)
+    delta = flash_attention_delta(out, dout)
+    b0, c0 = flash_bwd_dq.launches, flash_bwd_dkv.launches
+    dq = flash_bwd_dq(q, k, v, pos, dout, lse, delta, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, pos, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (b0 + 1,
+                                                               c0 + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    plain = flash_attention_backward_reference(q, k, v, pos, out, lse, dout,
+                                               scale)
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), pos, out.float(), lse,
+        dout.float(), scale)
+    for got, pl, rf in zip((dq, dk, dv), plain, ref):
+        _assert_close(got, pl, rf, dtype)
+    assert (dq[0, 0] == 0).all()
+
+
+def test_flash_backward_kernels_are_deterministic():
+    """No atomics: two launches give bitwise the same gradients."""
+    q, k, v, pos, dout, out, lse, scale = _backward_case(FLASH[3],
+                                                         torch.bfloat16)
+    delta = flash_attention_delta(out, dout)
+    first = (flash_bwd_dq(q, k, v, pos, dout, lse, delta, scale),
+             *flash_bwd_dkv(q, k, v, pos, dout, lse, delta, scale))
+    second = (flash_bwd_dq(q, k, v, pos, dout, lse, delta, scale),
+              *flash_bwd_dkv(q, k, v, pos, dout, lse, delta, scale))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_model_grads_through_kernels_match_reference():
+    """A backward through the model on the card reaches q_proj, k_proj
+    and v_proj (through kernels A, B and C) and gives the gradients of
+    the same model with the plain attention."""
+    import dataclasses
+
+    from orion_tpu_torch.config import ModelConfig
+    from orion_tpu_torch.models import Transformer
+
+    cfg = ModelConfig.tiny("llama", dtype="float32", hidden_size=256,
+                           num_heads=4, num_kv_heads=2)
+    model = Transformer(cfg, device="cuda", seed=1)
+    ref = Transformer(dataclasses.replace(cfg, attention_impl="reference"),
+                      device="cuda")
+    ref.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(2)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 37))).cuda()
+    pos = torch.arange(37, device="cuda")[None].expand(2, 37)
+    counts = (flash_attention_gqa.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    grads = {}
+    for name, m in (("kernels", model), ("reference", ref)):
+        logits = m(ids, pos)
+        loss = torch.log_softmax(logits, -1)[..., 3].mean()
+        loss.backward()
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+    after = (flash_attention_gqa.launches, flash_bwd_dq.launches,
+             flash_bwd_dkv.launches)
+    assert [b - a for a, b in zip(counts, after)] == [cfg.num_layers] * 3
+    for i in range(cfg.num_layers):
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            assert getattr(model.layers[i].attn, proj).weight.grad \
+                is not None
+    for n, g in grads["kernels"].items():
+        r = grads["reference"][n]
+        tol = 1e-4 * r.abs().max().item()
+        assert (g - r).abs().max().item() <= tol, n
 
 
 PAGED = [

@@ -43,6 +43,10 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_jax_or_orion_tpu():
     files = _port_files()
     assert len(files) > 10
+    scanned = {os.path.relpath(p, REPO) for p in files}
+    assert {f"orion_tpu_torch/{m}.py" for m in (
+        "trainers/base", "trainers/grpo", "algos/advantages", "algos/kl",
+        "algos/losses", "ops/logprobs", "rollout/engine")} <= scanned
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
            for p in files for line, mod in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -73,6 +77,22 @@ def test_entry_points_raise_without_device(no_cuda):
         ContinuousBatchingEngine(model, cfg, rcfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ContinuousBatchingEngine(model, cfg, rcfg, device="cuda")
+
+
+def test_trainer_raises_without_device(no_cuda):
+    from orion_tpu_torch.config import (GRPOConfig, ModelConfig,
+                                        RolloutConfig)
+    from orion_tpu_torch.models import Transformer
+    from orion_tpu_torch.trainers import GRPOTrainer
+
+    mc = ModelConfig.tiny("neox", dtype="float32")
+    cfg = GRPOConfig(model=mc, rollout=RolloutConfig(
+        max_prompt_len=8, max_new_tokens=4, page_size=4, max_batch_size=4,
+        engine="continuous"), group_size=2, minibatch_size=4)
+    model = Transformer(mc, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GRPOTrainer(cfg, model, reward_fn=lambda r, m: 0.0)
+    assert GRPOTrainer(cfg, model, device="cpu").device.type == "cpu"
 
 
 def test_kernel_build_without_nvcc_raises_every_time(no_cuda, monkeypatch,
@@ -107,6 +127,36 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         paged_decode_attention(q[:, 0].to("meta"), q.to("meta"),
                                q.to("meta"), pos.to("meta"),
                                pos[:, 0].to("meta"), 0.3)
+
+
+def test_flash_output_carries_the_autograd_function():
+    """With inputs that require grad, flash attention's output comes from
+    the autograd Function (kernel A forward, kernels B and C backward)
+    on every device — here on the CPU through the plain versions, with
+    no kernel launched.  Without grad it stays the forward-only call."""
+    from orion_tpu_torch.ops.flash_attention import (flash_attention_gqa,
+                                                     flash_bwd_dkv,
+                                                     flash_bwd_dq)
+
+    rng = np.random.RandomState(1)
+    q = torch.from_numpy(rng.randn(1, 4, 2, 8).astype(np.float32))
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    counts = (flash_attention_gqa.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    leaf = q.clone().requires_grad_()
+    out = flash_attention_gqa(leaf, q, q, pos, 0.3)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.sum().backward()
+    assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+    with torch.no_grad():
+        assert flash_attention_gqa(leaf, q, q, pos, 0.3).grad_fn is None
+    assert flash_attention_gqa(q, q, q, pos, 0.3).grad_fn is None
+    assert (flash_attention_gqa.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == counts
+    lse = torch.zeros(1, 2, 4)
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*(t.to("meta") for t in (q, q, q, pos, q, lse, lse)), 0.3)
 
 
 def _run_smoke(cwd):
