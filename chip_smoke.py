@@ -11,19 +11,29 @@ printing one JSON line:
 2. ``build``   — the CUDA kernels (one ``nvcc`` per source, all started
    together) and the native page scheduler, with their build seconds.
 3. ``kernels`` — each kernel against its plain PyTorch version on the
-   card in bf16 at the serving and training slices' shapes, with times
-   and bounds.
+   card (bf16 queries; bf16 pools for D, int8 pools for D') at the
+   serving and training slices' shapes, with times and bounds.
 4. ``engine``  — the continuous-batching engine at Pythia-1B width
-   (random seeded weights, bf16) serves 64 greedy requests; both kernel
-   launch counts must rise; 4 completions are re-scored by a full
-   forward with the plain attention.
-5. ``train``   — the GRPO trainer at Pythia-1B width and full depth
-   (f32 master weights from a seed, bf16 compute) runs 2 iterations of
-   32 rollouts; gradients through kernels A, B and C agree with the
-   plain attention's before the first step, every loss and gradient
-   norm is finite, the importance ratio starts at 1, the kernel launch
-   counts rise as the code implies, and the engine's weights equal the
-   policy's cast to bf16 after the weight sync.
+   (random seeded weights, bf16) serves 64 greedy requests; kernels A
+   and D launch exactly as often as the waves and steps imply; 4
+   completions are re-scored by a full forward with the plain
+   attention.
+5. ``engine_int8`` — the same 64 requests with int8 weights and int8 KV
+   pools: A launches once per layer and prefill wave, D' once per layer
+   and decode step, D never; 4 completions are re-scored by the same
+   quantized model with the plain attention through a fresh int8 paged
+   cache.
+6. ``train``   — the GRPO trainer at Pythia-1B width and full depth
+   (f32 master weights from a seed, bf16 compute, group prefix sharing)
+   runs 2 iterations of 32 rollouts; gradients through kernels A, B and
+   C agree with the plain attention's before the first step, every loss
+   and gradient norm is finite, the importance ratio starts at 1, the
+   kernel launch counts are those the code implies, and the engine's
+   weights equal the policy's cast to bf16 after the weight sync.
+7. ``train_int8`` — one GRPO iteration with the int8 rollout: D' is
+   launched (D never), the ratio starts at 1, and after the sync the
+   engine's int8 weights and scales equal ``prep_decode_params`` of the
+   policy, bitwise.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -34,6 +44,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -72,7 +83,8 @@ CLIP_FRAC_MAX = 1e-3
 # Re-scoring: where the plain-attention forward's top-2 logit margin
 # exceeds this, the engine's greedy token must be its argmax.  The two
 # forwards differ only by bf16 rounding (measured per position as the
-# engine-vs-plain policy logprob gap, printed beside it).
+# engine-vs-plain policy logprob gap, printed beside it); in the int8
+# phase both sides read the same int8 weights and the same int8 KV.
 MARGIN = 0.25
 
 
@@ -239,6 +251,77 @@ def paged_case(name, B, H, Hkv, D, ps, max_pages, seed):
             "bound_by": by}
 
 
+def paged_int8_case(name, B, H, Hkv, D, ps, max_pages, seed):
+    """Kernel D' against its plain version: bf16 q over int8 pools made
+    by quantizing random bf16 K and V per (token, head), as the engine
+    writes them."""
+    import torch
+
+    from orion_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_int8, paged_decode_attention_reference)
+    from orion_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev, bf = "cuda", torch.bfloat16
+    n_pages = B * max_pages + 1
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(bf)
+    pools = []
+    for _ in range(2):
+        x = torch.randn(n_pages, Hkv, ps, D, generator=gen,
+                        device=dev).to(bf)
+        xq, xs = quantize_kv(x)                  # [N,Hkv,ps,D], [N,Hkv,ps]
+        pools += [xq, xs[:, :, None, :].contiguous()]
+    kp, ks, vp, vs = pools
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+    lens = torch.randint(1, ps * max_pages + 1, (B,), generator=gen,
+                         device=dev).to(torch.int32)
+    lens[0] = 1                        # a single-token sequence
+    lens[1] = ps * max_pages           # a full table
+    used = (lens + ps - 1) // ps
+    col = torch.arange(max_pages, device=dev)[None, :]
+    bt = torch.where(col < used[:, None], bt, torch.zeros_like(bt))
+    scale = 1.0 / D ** 0.5
+
+    def kernel():
+        return paged_decode_attention_int8(q, kp, vp, ks, vs, bt, lens,
+                                           scale)
+
+    def plain(qq):
+        return paged_decode_attention_reference(qq, kp, vp, bt, lens, scale,
+                                                k_scales=ks, v_scales=vs)
+
+    out_k = kernel()
+    torch.cuda.synchronize()
+    out_p = plain(q)
+    ref = plain(q.float())
+    err_k = (out_k.float() - ref).abs().max().item()
+    err_p = (out_p.float() - ref).abs().max().item()
+    check(bool(torch.isfinite(out_k).all()), f"paged_int8 {name}: "
+          "non-finite")
+    check(err_k <= ERR_FACTOR * err_p,
+          f"paged_int8 {name}: kernel err {err_k} > {ERR_FACTOR} x plain "
+          f"err {err_p}")
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: plain(q), reps=5)
+    # Bound: every valid K and V row read once at 1 byte an element, 4
+    # bytes of scale a slot and kv head for each of K and V, q and O
+    # (bf16), the table entries in use and the lengths.
+    tokens = lens.long().sum().item()
+    nbytes = (2 * tokens * Hkv * D + 2 * 4 * tokens * Hkv
+              + 2 * 2 * q.numel() + 4 * (used.sum().item() + B))
+    flops = 4.0 * D * H * tokens
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    return {"case": name, "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D,
+                                    "ps": ps, "max_pages": max_pages,
+                                    "pools": "int8"},
+            "max_abs_err": err_k, "plain_bf16_err": err_p, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms,
+            "bound_by": by}
+
+
 def flash_bwd_case(name, B, Lq, Lk, H, Hkv, D, offsets, seed):
     """Kernels B (dq) and C (dk, dv) against the plain backward on kernel
     A's O and LSE, bf16.  ``offsets`` None means positions arange(Lq)
@@ -340,25 +423,41 @@ def flash_bwd_case(name, B, Lq, Lk, H, Hkv, D, offsets, seed):
             "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]}}
 
 
-# -- phase 4: the engine at Pythia-1B width -------------------------------
+# -- phases 4 and 5: the engine at Pythia-1B width, bf16 and int8 --------
 
-def engine_phase(card: str) -> dict:
+def rescore_model(cfg, eng, int8: bool):
+    """The engine's weights in a model with the plain (reference)
+    attention: the bf16 model, or with ``int8`` the same quantized one."""
     import dataclasses
 
+    from orion_tpu_torch.models import Transformer
+
+    model = Transformer(dataclasses.replace(
+        cfg, attention_impl="reference", quantize_dense=int8), device="cuda")
+    model.load_state_dict(eng.model.state_dict())
+    return model
+
+
+def engine_phase(card: str, int8: bool = False) -> dict:
     import numpy as np
     import torch
 
-    from orion_tpu_torch.models import Transformer
     from orion_tpu_torch.ops.flash_attention import flash_attention_gqa
-    from orion_tpu_torch.ops.paged_attention import paged_decode_attention
+    from orion_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_int8)
+    from orion_tpu_torch.ops.paged_kv import init_paged_cache
     from orion_tpu_torch.smoke import EOS, smoke_engine_and_requests
 
+    phase = "engine_int8" if int8 else "engine"
     # Warmed up inside, outside the counted run.
-    cfg, model, eng, reqs = smoke_engine_and_requests(64, seed=0)
+    cfg, model, eng, reqs = smoke_engine_and_requests(64, seed=0, int8=int8)
+    del model   # the engine holds its own weights (an int8 twin)
+    torch.cuda.empty_cache()
 
     prefill0, decode0 = eng.prefill_forwards, eng.decode_steps
     flash_attention_gqa.launches = 0
     paged_decode_attention.launches = 0
+    paged_decode_attention_int8.launches = 0
     torch.cuda.reset_peak_memory_stats()
     eng.reset_rng(0)
     t0 = time.perf_counter()
@@ -370,38 +469,44 @@ def engine_phase(card: str) -> dict:
         for r in eng.step():
             done[r.req_id] = r
         waves += 1
-        check(waves < 10000, "engine: no progress")
+        check(waves < 10000, f"{phase}: no progress")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": flash_attention_gqa.launches,
-                "paged_decode": paged_decode_attention.launches}
+                "paged_decode": paged_decode_attention.launches,
+                "paged_decode_int8": paged_decode_attention_int8.launches}
 
-    check(sorted(done) == list(range(64)), "engine: missing completions")
+    check(sorted(done) == list(range(64)), f"{phase}: missing completions")
     n_tokens = 0
     for rid, ids, budget in reqs:
         r = done[rid]
         n = len(r.tokens)
         n_tokens += n
-        check(1 <= n <= budget, f"engine: req {rid} length {n} > {budget}")
+        check(1 <= n <= budget, f"{phase}: req {rid} length {n} > {budget}")
         check(n == budget or r.tokens[-1] == EOS,
-              f"engine: req {rid} stopped early without EOS")
+              f"{phase}: req {rid} stopped early without EOS")
         check(bool(np.isfinite(r.logprobs).all()),
-              f"engine: req {rid} non-finite logprobs")
+              f"{phase}: req {rid} non-finite logprobs")
     # Per layer, A once for each prefill wave (every prompt has 64+
-    # tokens) and D once for each decode step.
+    # tokens) and D (bf16 pools) or D' (int8 pools) once for each
+    # decode step; the other decode kernel never.
     L = cfg.num_layers
     prefills = eng.prefill_forwards - prefill0
     decodes = eng.decode_steps - decode0
-    expect = {"flash_fwd": L * prefills, "paged_decode": L * decodes}
+    decode = "paged_decode_int8" if int8 else "paged_decode"
+    expect = {"flash_fwd": L * prefills, "paged_decode": 0,
+              "paged_decode_int8": 0}
+    expect[decode] = L * decodes
     check(launches == expect and prefills > 0 and decodes > 0,
-          f"engine: launches {launches}, expected {expect} ({prefills} "
+          f"{phase}: launches {launches}, expected {expect} ({prefills} "
           f"prefill waves, {decodes} decode steps)")
 
     # Re-score 4 completions with a full forward through the PLAIN
-    # attention (reference einsum) on the card.
-    ref_model = Transformer(dataclasses.replace(
-        cfg, attention_impl="reference"), device="cuda")
-    ref_model.load_state_dict(model.state_dict())
+    # attention (reference einsum) on the card: bf16, over the prompt
+    # and completion; int8, with the engine's quantized weights through
+    # a fresh int8 paged cache, so the keys and values are quantized
+    # as the engine's were.
+    ref_model = rescore_model(cfg, eng, int8)
     checked = total = 0
     max_lp_gap = 0.0
     with torch.no_grad():
@@ -410,7 +515,11 @@ def engine_phase(card: str) -> dict:
             seq = np.concatenate([ids, r.tokens]).astype(np.int64)
             ids_t = torch.from_numpy(seq)[None].cuda()
             pos = torch.arange(len(seq), device="cuda")[None]
-            logits = ref_model(ids_t, pos)[0]
+            cache = (init_paged_cache(
+                L, 1, len(seq), cfg.num_kv_heads, cfg.head_dim,
+                eng.cfg.page_size, device="cuda", quantized=True)
+                if int8 else None)
+            logits = ref_model(ids_t, pos, cache)[0]
             P, n = len(ids), len(r.tokens)
             lg = logits[P - 1:P - 1 + n]            # predicts tokens[0..n)
             top2 = torch.topk(lg, 2, dim=-1)
@@ -426,12 +535,15 @@ def engine_phase(card: str) -> dict:
             checked += int(sure.sum())
             bad = np.nonzero(sure & (argmax != r.tokens))[0]
             check(len(bad) == 0,
-                  f"engine: req {rid} greedy token differs from the plain "
+                  f"{phase}: req {rid} greedy token differs from the plain "
                   f"forward's argmax at positions {bad.tolist()} "
                   f"(margins {margin[bad].tolist()})")
     ttft = sorted(eng.ttft.values())
-    return {"phase": "engine", "card": card, "model": "pythia_1b",
-            "dtype": "bfloat16", "requests": len(done),
+    return {"phase": phase, "card": card, "model": "pythia_1b",
+            "dtype": "bfloat16",
+            "int8": {"weights": eng.cfg.quantize_weights,
+                     "kv": eng.cfg.quantize_kv},
+            "requests": len(done),
             "generated_tokens": n_tokens, "waves": waves,
             "wall_s": wall, "tokens_per_s": n_tokens / wall,
             "ttft_p50_s": ttft[len(ttft) // 2],
@@ -443,7 +555,7 @@ def engine_phase(card: str) -> dict:
                         "max_policy_logprob_gap": max_lp_gap}}
 
 
-# -- phase 5: GRPO training at Pythia-1B width ---------------------------
+# -- phases 6 and 7: GRPO training at Pythia-1B width ---------------------
 
 def grad_agreement(trainer, mb, ref_model) -> dict:
     """Cosine and norm ratio between the policy's gradients (kernels A,
@@ -477,19 +589,16 @@ def grad_agreement(trainer, mb, ref_model) -> dict:
 def train_phase(card: str) -> dict:
     import dataclasses
 
-    import numpy as np
     import torch
 
     from orion_tpu_torch.device import torch_dtype
     from orion_tpu_torch.models import Transformer
-    from orion_tpu_torch.ops.flash_attention import (flash_attention_gqa,
-                                                     flash_bwd_dkv,
-                                                     flash_bwd_dq)
-    from orion_tpu_torch.ops.paged_attention import paged_decode_attention
     from orion_tpu_torch.smoke import smoke_trainer_and_prompts
 
     cfg, tr, prompts = smoke_trainer_and_prompts(seed=0)
     mc = cfg.model
+    check(cfg.rollout.group_prefix_sharing and tr.engine.supports_groups,
+          "train: the rollout does not share group prefixes")
 
     # 1. Before any step: gradients on one minibatch through kernels A,
     # B and C against the plain attention with the same weights.
@@ -512,6 +621,41 @@ def train_phase(card: str) -> dict:
              "embed.weight", "lm_head.weight")
     params = dict(tr.model.named_parameters())
     before = {n: params[n].detach().clone() for n in watch}
+    # 2. Two counted iterations: finite results, the ratio at 1 on each
+    # first minibatch, exact launch counts (run_counted); the
+    # parameters moved.
+    run = run_counted(tr, prompts, 2, "train")
+    for n in watch:
+        check(not torch.equal(before[n], params[n].detach()),
+              f"train: {n} did not change")
+    # 3. Weight sync: the engine's copy is the policy cast to bf16.
+    eng = dict(tr.engine.model.named_parameters())
+    for n, p in params.items():
+        check(torch.equal(eng[n], p.detach().to(eng[n].dtype)),
+              f"train: engine weight {n} differs from the policy's")
+
+    return {"phase": "train", "card": card, "model": "pythia_1b",
+            "param_dtype": mc.param_dtype, "dtype": mc.dtype,
+            "grad_agreement": agree, "grad_cos_min": GRAD_COS_MIN,
+            "grad_norm_rtol": GRAD_NORM_RTOL, **train_summary(cfg, run)}
+
+
+def run_counted(tr, prompts, iterations: int, phase: str) -> dict:
+    """Run ``iterations`` GRPO iterations with every kernel count set to
+    0 just before and read just after, and check what every phase
+    checks: finite losses and gradient norms, the importance ratio at 1
+    on each iteration's first minibatch, and the launches of every
+    kernel exactly as the waves, steps and minibatches imply."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch.ops.flash_attention import (flash_attention_gqa,
+                                                     flash_bwd_dkv,
+                                                     flash_bwd_dq)
+    from orion_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_int8)
+
+    cfg = tr.cfg
     # Each iteration's first minibatch: its stats, and the gap between
     # its old logprobs (recomputed at batch 32) and the same rows
     # recomputed at batch 8, both as device tensors read after the run.
@@ -536,19 +680,18 @@ def train_phase(card: str) -> dict:
     tr._update_fn = recording_update
     eng = tr.engine
     prefill0, decode0 = eng.prefill_forwards, eng.decode_steps
-    flash_attention_gqa.launches = 0
-    paged_decode_attention.launches = 0
-    flash_bwd_dq.launches = 0
-    flash_bwd_dkv.launches = 0
+    kernels = {"flash_fwd": flash_attention_gqa,
+               "paged_decode": paged_decode_attention,
+               "paged_decode_int8": paged_decode_attention_int8,
+               "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    for fn in kernels.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    hist = tr.train(prompts, num_iterations=2)
+    hist = tr.train(prompts, num_iterations=iterations)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_attention_gqa.launches,
-                "paged_decode": paged_decode_attention.launches,
-                "flash_bwd_dq": flash_bwd_dq.launches,
-                "flash_bwd_dkv": flash_bwd_dkv.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     prefills = eng.prefill_forwards - prefill0
     decodes = eng.decode_steps - decode0
     del tr._update_fn
@@ -559,39 +702,43 @@ def train_phase(card: str) -> dict:
                  "old_logprob_gap_mean": float(gmean)}
                 for i, (st, gmax, gmean) in enumerate(firsts)]
 
-    # 2. Finite results, and the parameters moved.
     for h in hist:
         check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
-              f"train: non-finite loss or grad norm: {h}")
-    for n in watch:
-        check(not torch.equal(before[n], params[n].detach()),
-              f"train: {n} did not change")
-    # 3. The importance ratio starts at 1: each iteration's first
+              f"{phase}: non-finite loss or grad norm: {h}")
+    # The importance ratio starts at 1: each iteration's first
     # minibatch, before that iteration's first step.
-    check(len(first_mb) == len(hist), f"train: first minibatches {first_mb}")
+    check(len(first_mb) == len(hist),
+          f"{phase}: first minibatches {first_mb}")
     for h in first_mb:
         check(abs(h["ratio_mean"] - 1) <= RATIO_TOL
               and h["clip_frac"] <= CLIP_FRAC_MAX,
-              f"train: first minibatch of iteration {h['iteration']}: {h}")
-    # 4. Launches, per layer: A once for each engine prefill wave (every
-    # prompt has 64+ tokens), for the old and the ref logprobs and for
-    # each minibatch's forward; D once for each decode step; B and C
-    # once for each minibatch's backward.
-    L = mc.num_layers
+              f"{phase}: first minibatch of iteration {h['iteration']}: {h}")
+    # Launches, per layer: A once for each engine prefill wave (every
+    # prompt has 64+ tokens; a group of 4 clones is one prefill row),
+    # for the old and the ref logprobs and for each minibatch's
+    # forward; D (bf16 pools) or D' (int8 pools) once for each decode
+    # step, the other never; B and C once for each minibatch's
+    # backward.
+    L = cfg.model.num_layers
     iters_n = len(hist)
+    decode = ("paged_decode_int8" if cfg.rollout.quantize_kv
+              else "paged_decode")
     expect = {"flash_fwd": L * (prefills + (2 + n_mb) * iters_n),
-              "paged_decode": L * decodes,
+              "paged_decode": 0, "paged_decode_int8": 0,
               "flash_bwd_dq": L * n_mb * iters_n,
               "flash_bwd_dkv": L * n_mb * iters_n}
-    check(launches == expect,
-          f"train: launches {launches}, expected {expect} ({prefills} "
+    expect[decode] = L * decodes
+    check(launches == expect and prefills > 0 and decodes > 0,
+          f"{phase}: launches {launches}, expected {expect} ({prefills} "
           f"prefill waves, {decodes} decode steps)")
-    # 5. Weight sync: the engine's copy is the policy cast to bf16.
-    eng = dict(tr.engine.model.named_parameters())
-    for n, p in params.items():
-        check(torch.equal(eng[n], p.detach().to(eng[n].dtype)),
-              f"train: engine weight {n} differs from the policy's")
+    return {"hist": hist, "wall_s": wall, "launches": launches,
+            "prefill_waves": prefills, "decode_steps": decodes,
+            "n_mb": n_mb, "first_minibatch": first_mb,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
+
+def train_summary(cfg, run) -> dict:
+    hist, wall = run["hist"], run["wall_s"]
     iters = [{k: h[k] for k in (
         "iteration", "loss", "policy_loss", "kl", "entropy", "grad_norm",
         "ratio_mean", "clip_frac", "approx_kl", "reward_mean",
@@ -599,20 +746,57 @@ def train_phase(card: str) -> dict:
         "samples_per_sec")} for h in hist]
     n_samples = cfg.rollout_batch_size * cfg.group_size
     tokens = sum(h["completion_len_mean"] * n_samples for h in hist)
-    return {"phase": "train", "card": card, "model": "pythia_1b",
-            "param_dtype": mc.param_dtype, "dtype": mc.dtype,
-            "rollouts_per_iteration": n_samples,
-            "minibatches_per_iteration": n_mb, "grad_agreement": agree,
-            "grad_cos_min": GRAD_COS_MIN, "grad_norm_rtol": GRAD_NORM_RTOL,
+    return {"rollouts_per_iteration": n_samples,
+            "minibatches_per_iteration": run["n_mb"],
+            "group_prefix_sharing": cfg.rollout.group_prefix_sharing,
             "ratio_tol": RATIO_TOL, "clip_frac_max": CLIP_FRAC_MAX,
-            "first_minibatch": first_mb, "iterations": iters, "wall_s": wall,
+            "first_minibatch": run["first_minibatch"], "iterations": iters,
+            "wall_s": wall,
             "iteration_wall_s": [h["time_rollout_s"] + h["time_update_s"]
                                  for h in hist],
             "samples_per_s": n_samples * len(hist) / wall,
             "generated_tokens_per_s": tokens / wall,
-            "launches": launches, "prefill_waves": prefills,
-            "decode_steps": decodes,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "launches": run["launches"],
+            "prefill_waves": run["prefill_waves"],
+            "decode_steps": run["decode_steps"],
+            "peak_mem_gb": run["peak_mem_gb"]}
+
+
+def train_int8_phase(card: str) -> dict:
+    """One GRPO iteration whose rollout serves int8 weights and int8 KV
+    pools; after the sync the engine's weights are the policy's
+    prepared (cast to bf16, then quantized), bitwise."""
+    import torch
+
+    from orion_tpu_torch.models.transformer import (QuantLinear,
+                                                    prep_decode_params)
+    from orion_tpu_torch.smoke import smoke_trainer_and_prompts
+
+    cfg, tr, prompts = smoke_trainer_and_prompts(seed=0, int8=True)
+    check(all(isinstance(p, torch.nn.Parameter) and p.dtype == torch.float32
+              for p in tr.model.parameters()),
+          "train_int8: the policy must stay f32")
+    run = run_counted(tr, prompts, 1, "train_int8")
+    want = prep_decode_params(tr.model.state_dict(), cfg.model,
+                              quantize_weights=True)
+    have = tr.engine.model.state_dict()
+    check(have.keys() == want.keys(),
+          f"train_int8: engine keys {sorted(set(have) ^ set(want))}")
+    n_q = 0
+    for name, t in want.items():
+        check(have[name].dtype == t.dtype and torch.equal(have[name], t),
+              f"train_int8: engine weight {name} differs from the "
+              "policy's prepared weight")
+        n_q += name.endswith("weight_q")
+    n_dense = sum(isinstance(m, QuantLinear)
+                  for m in tr.engine.model.modules())
+    check(n_q == n_dense > 0, f"train_int8: {n_q} int8 weights synced, "
+          f"{n_dense} int8 Dense layers")
+    return {"phase": "train_int8", "card": card, "model": "pythia_1b",
+            "param_dtype": cfg.model.param_dtype, "dtype": cfg.model.dtype,
+            "int8": {"weights": cfg.rollout.quantize_weights,
+                     "kv": cfg.rollout.quantize_kv},
+            "int8_weights_synced": n_q, **train_summary(cfg, run)}
 
 
 def main() -> int:
@@ -662,26 +846,34 @@ def main() -> int:
              flash_case("verify", 8, 5, 388, 8, 8, 256, 3)]
     paged = [paged_case("pythia_decode", 32, 8, 8, 256, 64, 10, 4),
              paged_case("llama_gqa", 32, 32, 8, 64, 64, 10, 5)]
+    paged_int8 = [
+        paged_int8_case("pythia_decode", 32, 8, 8, 256, 64, 10, 9),
+        paged_int8_case("llama_gqa", 32, 32, 8, 64, 64, 10, 10)]
     bwd = [flash_bwd_case("pythia_train", 8, 384, 384, 8, 8, 256, None, 6),
            flash_bwd_case("llama_gqa", 4, 256, 256, 32, 8, 64, None, 7),
            flash_bwd_case("odd_ragged", 4, 389, 397, 8, 8, 256, 8, 8)]
     emit({"phase": "kernels", "names": list(cuda_build.KERNELS),
           "card": card, "err_factor": ERR_FACTOR, "lse_tol": LSE_TOL,
-          "flash_fwd": flash, "paged_decode": paged, "flash_bwd": bwd})
+          "flash_fwd": flash, "paged_decode": paged,
+          "paged_decode_int8": paged_int8, "flash_bwd": bwd})
 
-    eng = engine_phase(card)
-    emit(eng)
-    torch.cuda.empty_cache()
-    train = train_phase(card)
-    emit(train)
+    runs = {}
+    for name, phase in (("engine", lambda: engine_phase(card)),
+                        ("engine_int8", lambda: engine_phase(card, True)),
+                        ("train", lambda: train_phase(card)),
+                        ("train_int8", lambda: train_int8_phase(card))):
+        runs[name] = phase()
+        emit(runs[name])
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    by_path = {"flash_fwd": {"engine": eng["launches"]["flash_fwd"],
-                             "train": train["launches"]["flash_fwd"]},
-               "paged_decode": {"engine": eng["launches"]["paged_decode"],
-                                "train": train["launches"]["paged_decode"]},
-               "flash_bwd_dq": {"train": train["launches"]["flash_bwd_dq"]},
-               "flash_bwd_dkv": {
-                   "train": train["launches"]["flash_bwd_dkv"]}}
+    # Launches of each kernel on each path that runs it (0 where the
+    # path must not: D on the int8 paths, D' on the bf16 ones).
+    by_path = {}
+    for path, res in runs.items():
+        for kname, n in res["launches"].items():
+            if n or kname.startswith("paged_decode"):
+                by_path.setdefault(kname, {})[path] = n
 
     def row(name, source, replaces, case):
         return {"name": name, "route": "cuda", "source": source,
@@ -698,6 +890,8 @@ def main() -> int:
             "orion_tpu/ops/pallas/flash_attention.py:162", flash[0]),
         row("paged_decode", "orion_tpu_torch/csrc/paged_decode.cu",
             "orion_tpu/ops/pallas/paged_attention.py:134", paged[0]),
+        row("paged_decode_int8", "orion_tpu_torch/csrc/paged_decode.cu",
+            "orion_tpu/ops/pallas/paged_attention.py:213", paged_int8[0]),
         row("flash_bwd_dq", "orion_tpu_torch/csrc/flash_bwd_dq.cu",
             "orion_tpu/ops/pallas/flash_attention.py:339",
             bwd[0]["flash_bwd_dq"]),

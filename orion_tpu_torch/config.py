@@ -2,9 +2,10 @@
 
 The port's own copy of what it reads from ``orion_tpu.config``:
 ``ModelConfig`` whole (minus the JAX-only knobs: remat, scan_layers,
-int8 dense, sequence sharding, MoE); the ``RolloutConfig`` fields the
-continuous-batching engine reads with its optional machinery off (no
-prefix cache, chunked prefill, speculative decoding, int8, host tier
+sequence sharding, MoE); the ``RolloutConfig`` fields the
+continuous-batching engine reads — int8 weights and KV pools and
+k-clone group admission included, the rest of its optional machinery
+off (no prefix cache, chunked prefill, speculative decoding, host tier
 or repetition penalty — each a later slice); ``OptimizerConfig``; and
 the ``TrainConfig`` / ``GRPOConfig`` fields the sync GRPO loop reads.
 Names and defaults are the JAX package's.
@@ -50,6 +51,11 @@ class ModelConfig:
     # "auto": the hand flash kernel for Lq > 1 on CUDA, the reference
     # einsum elsewhere; "reference": always the reference.
     attention_impl: str = "auto"
+    # Dense layers read int8 weights with per-output-channel f32 scales
+    # (``QuantLinear``, ops/quant.py).  Set only on the engine's serving
+    # model when RolloutConfig.quantize_weights is on; never on a
+    # training model.
+    quantize_dense: bool = False
 
     def __post_init__(self) -> None:
         if self.head_dim == 0:
@@ -124,6 +130,16 @@ class RolloutConfig:
     # "continuous".  The JAX default; the port's trainer needs
     # "continuous".
     engine: str = "simple"
+    # int8 serving (ops/quant.py): the engine's Dense weights stored
+    # int8 with per-output-channel scales, and/or its paged KV pools
+    # int8 with per-(token, head) scales (decode through kernel D').
+    # Off by default; the training graph is never quantized.
+    quantize_weights: bool = False
+    quantize_kv: bool = False
+    # Shared-prefix group admission: a k-clone group prefills its prompt
+    # once and its clones share the fully-filled prompt pages.  False =
+    # k independent solo requests.
+    group_prefix_sharing: bool = True
 
     def effective_min_new(self, eos_id) -> int:
         """min_new_tokens only binds when SOME terminator can fire."""

@@ -5,6 +5,10 @@ JAX arrays passes ``jax.tree.map(np.asarray, params)``; this module
 imports nothing of JAX).  Flax ``Dense.kernel`` is [in, out] and
 ``nn.Linear.weight`` is [out, in], so projections are transposed;
 norm ``scale`` becomes ``weight``; the embedding table is taken as is.
+A tree from ``quantize_params_int8`` (the ``QuantDense`` layout
+``{kernel_q, scale, bias?}``) loads into a model built with
+``quantize_dense=True``: ``kernel_q`` transposed into ``weight_q``,
+the per-output-channel ``scale`` as it is.
 """
 
 from __future__ import annotations
@@ -28,8 +32,16 @@ def _copy(dst: torch.Tensor, src, transpose: bool = False) -> None:
     dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
 
 
-def _load_dense(linear: torch.nn.Linear, node: Mapping) -> None:
-    _copy(linear.weight, node["kernel"], transpose=True)
+def _load_dense(linear: torch.nn.Module, node: Mapping) -> None:
+    if ("kernel_q" in node) != hasattr(linear, "weight_q"):
+        raise ValueError("an int8 (QuantDense) tree loads into a model "
+                         "built with quantize_dense=True, and only there")
+    if "kernel_q" in node:
+        # int8 values are exact in f32, so _copy's f32 trip keeps them.
+        _copy(linear.weight_q, node["kernel_q"], transpose=True)
+        _copy(linear.scale, node["scale"])
+    else:
+        _copy(linear.weight, node["kernel"], transpose=True)
     if linear.bias is not None:
         _copy(linear.bias, node["bias"])
 

@@ -1,6 +1,6 @@
 """The decoder-only transformer (port of
 ``orion_tpu/models/transformer.py``: the unrolled model, no MoE, no
-int8 dense, no scan).
+scan).
 
 - ``arch="llama"``: RMSNorm, SwiGLU MLP, full rotary, optional GQA.
 - ``arch="neox"``: LayerNorm with bias, parallel attention+MLP residual,
@@ -12,17 +12,21 @@ param_dtype=f32)``; no autocast).  A serving model stores its weights
 in ``cfg.dtype`` — the JAX engine casts its f32 master tree to the
 compute dtype once at load — so there every cast is a no-op; a
 trainer's policy stores them in ``cfg.param_dtype`` (f32 masters, bf16
-compute) and gradients flow back through the casts.  The
-forward takes an optional paged cache — a per-layer list of
-``{"k_pages", "v_pages", "block_tables"}`` — written IN PLACE: Lq == 1
-decodes through the paged kernel (kernel D), Lq > 1 prefills through
-the gathered pages and ``attention()`` (kernel A on CUDA).  Logits come
-back in f32.
+compute) and gradients flow back through the casts.  With
+``cfg.quantize_dense`` every Dense layer (q/k/v/o, the MLP and the LM
+head) is a :class:`QuantLinear` holding int8 weights — the engine's
+serving model under ``RolloutConfig.quantize_weights``, its weights
+made by :func:`prep_decode_params`.  The forward takes an optional
+paged cache — a per-layer list of ``{"k_pages", "v_pages",
+"block_tables"}`` (plus ``"k_scales"``/``"v_scales"`` for int8 pools) —
+written IN PLACE: Lq == 1 decodes through the paged kernel (D, or D'
+over int8 pools), Lq > 1 prefills through the gathered (dequantized)
+pages and ``attention()`` (kernel A on CUDA).  Logits come back in f32.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +38,7 @@ from orion_tpu_torch.ops.attention import attention
 from orion_tpu_torch.ops.paged_attention import paged_decode_attention
 from orion_tpu_torch.ops.paged_kv import (gather_paged_kv, is_paged,
                                           write_paged_tokens)
+from orion_tpu_torch.ops.quant import quantize_params_int8
 from orion_tpu_torch.ops.rotary import apply_rotary
 
 
@@ -50,6 +55,37 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class QuantLinear(nn.Module):
+    """Weight-only int8 Dense (``QuantDense`` of the JAX package):
+    ``weight_q`` int8 [out, in] with a per-output-channel f32 ``scale``
+    [out] and an optional bias (stored in the given dtype).  The
+    forward is ``(x @ weight_q.T) * scale + bias``, each operand cast to
+    ``compute_dtype`` first.  Weights come from
+    :func:`~orion_tpu_torch.ops.quant.quantize_params_int8`, never from
+    training; none of them takes a gradient."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 compute_dtype: torch.dtype, device=None, dtype=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight_q = nn.Parameter(torch.empty(
+            out_features, in_features, dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.empty(
+            out_features, dtype=torch.float32, device=device),
+            requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(
+            out_features, dtype=dtype, device=device), requires_grad=False)
+            if bias else None)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = F.linear(x.to(dt), self.weight_q.to(dt)) * self.scale.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -83,9 +119,9 @@ def _norm(cfg: ModelConfig, **kw) -> nn.Module:
 
 
 def _linear(cfg: ModelConfig, in_features: int, out_features: int,
-            bias: bool, **kw) -> Linear:
-    return Linear(in_features, out_features, bias,
-                  torch_dtype(cfg.dtype), **kw)
+            bias: bool, **kw) -> nn.Module:
+    cls = QuantLinear if cfg.quantize_dense else Linear
+    return cls(in_features, out_features, bias, torch_dtype(cfg.dtype), **kw)
 
 
 class Attention(nn.Module):
@@ -118,11 +154,14 @@ class Attention(nn.Module):
                 out = paged_decode_attention(
                     q[:, 0], layer_cache["k_pages"], layer_cache["v_pages"],
                     layer_cache["block_tables"], positions[:, 0] + 1,
-                    scale)[:, None]
+                    scale, k_scales=layer_cache.get("k_scales"),
+                    v_scales=layer_cache.get("v_scales"))[:, None]
                 return self.o_proj(out.reshape(B, L, H * D))
             # Prefill: slot j of the gathered pages holds position j,
             # so the positional mask covers history and new keys alike.
-            keys, values = gather_paged_kv(layer_cache)
+            # int8 pools come back dequantized into the compute dtype.
+            keys, values = gather_paged_kv(layer_cache,
+                                           torch_dtype(cfg.dtype))
         elif layer_cache is not None:
             raise ValueError("the port supports the paged cache only")
         else:
@@ -205,7 +244,12 @@ class Transformer(nn.Module):
         gen = torch.Generator(device=self.embed.weight.device)
         gen.manual_seed(seed)
         for mod in self.modules():
-            if isinstance(mod, (Linear, nn.Embedding)):
+            if isinstance(mod, QuantLinear):
+                mod.weight_q.zero_()
+                mod.scale.fill_(1.0)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (Linear, nn.Embedding)):
                 mod.weight.normal_(0.0, 0.02, generator=gen)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
@@ -230,3 +274,18 @@ class Transformer(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits.to(torch.float32)
+
+
+def prep_decode_params(state_dict: Dict[str, torch.Tensor],
+                       cfg: ModelConfig, quantize_weights: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """The engine's weight preparation (the JAX package's
+    ``prep_decode_params``): every floating tensor cast to the compute
+    dtype FIRST, then, with ``quantize_weights``, the Dense weights
+    quantized to int8 (so the scales come from the compute-dtype
+    values, as in the JAX engine).  Both steps pass prepared tensors
+    through unchanged."""
+    cdt = torch_dtype(cfg.dtype)
+    out = {k: v.to(cdt) if v.is_floating_point() else v
+           for k, v in state_dict.items()}
+    return quantize_params_int8(out) if quantize_weights else out

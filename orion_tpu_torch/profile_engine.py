@@ -1,9 +1,11 @@
 """Where the serving engine's time goes on the card.
 
     python3 -m orion_tpu_torch.profile_engine [--requests 64] [--seed 0]
+                                              [--int8]
 
 Serves the smoke mix of :mod:`orion_tpu_torch.smoke` (the workload of
-``chip_smoke.py``'s engine phase) twice: once
+``chip_smoke.py``'s engine phase; with ``--int8`` its int8 twin, the
+``engine_int8`` phase's: int8 weights and KV pools) twice: once
 unprofiled for the wall time, once under ``torch.profiler`` for the
 device time by kernel.  Prints JSON lines: the card, the unprofiled
 run, the device-time breakdown by kernel class and the top kernels,
@@ -27,6 +29,7 @@ CLASSES = (
     ("flash_fwd", r"flash_fwd_kernel"),
     ("flash_bwd_dq", r"flash_bwd_dq_kernel"),
     ("flash_bwd_dkv", r"flash_bwd_dkv_kernel"),
+    ("paged_decode_int8", r"paged_decode_kernel<.*true>"),
     ("paged_decode", r"paged_decode_kernel"),
     ("optimizer", r"multi_tensor_apply"),
     ("matmul", r"gemm|gemv|sm90_|cutlass|cublas|nvjet|splitK"),
@@ -55,6 +58,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 serving mix (int8 weights and KV pools)")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,12 +71,15 @@ def main(argv=None) -> int:
         print("profile_engine: no CUDA device", file=sys.stderr)
         return 1
     card = card_name()
-    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
+    print(json.dumps({"card": card, "torch": torch.__version__,
+                      "int8": args.int8}), flush=True)
 
-    _, _, eng, reqs = smoke_engine_and_requests(args.requests, args.seed)
+    _, _, eng, reqs = smoke_engine_and_requests(args.requests, args.seed,
+                                                int8=args.int8)
 
     wall, tokens = _serve(eng, reqs)
-    print(json.dumps({"run": "unprofiled", "card": card, "wall_s": wall,
+    print(json.dumps({"run": "unprofiled", "card": card, "int8": args.int8,
+                      "wall_s": wall,
                       "generated_tokens": tokens,
                       "tokens_per_s": tokens / wall}), flush=True)
 
@@ -80,7 +88,8 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         pwall, _ = _serve(eng, reqs)
     out = device_breakdown(prof, pwall)
-    print(json.dumps({"run": "profiled", "card": card, **out}), flush=True)
+    print(json.dumps({"run": "profiled", "card": card, "int8": args.int8,
+                      **out}), flush=True)
     return 0 if out["device_busy_ms"] else 1
 
 

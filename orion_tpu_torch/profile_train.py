@@ -1,9 +1,10 @@
 """Where the GRPO trainer's time goes on the card.
 
-    python3 -m orion_tpu_torch.profile_train [--seed 0]
+    python3 -m orion_tpu_torch.profile_train [--seed 0] [--int8]
 
 Runs the training smoke of :mod:`orion_tpu_torch.smoke` (the work of
-``chip_smoke.py``'s train phase): one warm-up iteration, one
+``chip_smoke.py``'s train phase; with ``--int8`` its int8 rollout twin,
+the ``train_int8`` phase's): one warm-up iteration, one
 unprofiled iteration for the wall times, then one iteration under
 ``torch.profiler``, its rollout half (generate, score, old and ref
 logprobs) and its update half (minibatch forward/backward, AdamW,
@@ -25,6 +26,8 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 rollout (int8 weights and KV pools)")
     args = ap.parse_args(argv)
 
     import torch
@@ -37,9 +40,10 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     card = card_name()
-    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
+    print(json.dumps({"card": card, "torch": torch.__version__,
+                      "int8": args.int8}), flush=True)
 
-    _, tr, prompts = smoke_trainer_and_prompts(args.seed)
+    _, tr, prompts = smoke_trainer_and_prompts(args.seed, int8=args.int8)
     tr.train(prompts, num_iterations=2)      # warm-up, then timed
     stats = tr.metrics_history[-1]
     print(json.dumps({"run": "unprofiled", "card": card, **{

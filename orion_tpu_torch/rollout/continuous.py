@@ -15,16 +15,29 @@ when the pool runs dry; restart-by-recompute) -> one decode segment of
 ``segment_len`` tokens for every slot -> harvest finished slots and
 free their pages.  ``generate()`` is the run-to-completion wrapper.
 
+k-clone groups (``submit(..., k)``): the scheduler admits a group's k
+clones together; the wave prefills the prompt ONCE through the first
+clone's block table, the fully-filled prompt pages are shared by every
+clone's table, and each other clone gets a private copy of the partial
+last prompt page (every pool key, int8 scales included).  Each clone
+samples its own first token from the shared logits.  A preempted clone
+restarts as a solo request.
+
+int8 serving: ``cfg.quantize_weights`` serves a twin of the model built
+with ``quantize_dense=True`` (int8 Dense weights, ops/quant.py);
+``cfg.quantize_kv`` keeps the pools int8 with f32 per-(token, head)
+scale pools, decoded by kernel D'.
+
 Differences from the JAX engine, none of which changes a completion:
 the programs run eagerly (a CUDA graph of the segment is later work);
 pools and per-slot state update in place; finished slots are harvested
 in the wave that finishes them (the JAX engine's ``harvest_lag=0``,
 its setting off-TPU); sampling draws from a ``torch.Generator``.  The
-optional machinery of the JAX engine — prefix cache, chunked prefill,
-speculative decoding, k-clone groups, int8 pools and weights, host
-tier, repetition penalty, tenants, streaming, meshes — is not ported
-yet.  ``generate_batch`` is the trainer-facing surface: a padded
-``GenerationResult`` for a batch of prompts.
+rest of the JAX engine's optional machinery — prefix cache, chunked
+prefill, speculative decoding, host tier, repetition penalty, tenants,
+streaming, meshes — is not ported yet.  ``generate_batch`` is the
+trainer-facing surface: a padded ``GenerationResult`` for a batch of
+prompts.
 """
 
 from __future__ import annotations
@@ -38,7 +51,10 @@ import torch
 
 from orion_tpu_torch.config import ModelConfig, RolloutConfig
 from orion_tpu_torch.device import resolve_device
+from orion_tpu_torch.models.transformer import (Transformer,
+                                                prep_decode_params)
 from orion_tpu_torch.ops.logprobs import pack_sequences
+from orion_tpu_torch.ops.paged_kv import init_pools
 from orion_tpu_torch.ops.sampling import (eos_forbid_mask, is_stop_token,
                                           sample_tokens)
 from orion_tpu_torch.rollout.engine import GenerationResult
@@ -71,21 +87,28 @@ class ContinuousBatchingEngine:
     """Throughput-oriented generation over a stream of requests.
 
     ``model`` is the port's :class:`~orion_tpu_torch.models.Transformer`
-    (its weights are the engine's).  ``device=None`` means the card and
-    raises without one; the model is moved to the engine's device."""
+    (its weights are the engine's; with ``cfg.quantize_weights`` the
+    engine serves an int8 twin made from them).  ``device=None`` means
+    the card and raises without one; the model is moved to the engine's
+    device."""
 
-    # k-clone group admission (one prefill and shared prompt pages per
-    # group) is not ported yet: a group trainer hands over the batch
-    # already repeated in the i*k+j layout, which gives the same rows.
-    supports_groups = False
+    # Trainers may pass the unique prompts + group_size to
+    # generate_batch: each prompt is prefilled once and its k clones
+    # share its prompt pages.
+    supports_groups = True
 
     def __init__(self, model, model_cfg: ModelConfig, cfg: RolloutConfig,
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
                  segment_len: Optional[int] = None, device=None):
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
         self.mc = model_cfg
         self.cfg = cfg
+        if cfg.quantize_weights:
+            qcfg = dataclasses.replace(model_cfg, quantize_dense=True)
+            self.model = Transformer(qcfg, device=self.device)
+            self.load_weights(model.state_dict())
+        else:
+            self.model = model.to(self.device)
         cfg.check_stop_ids(model_cfg.vocab_size, eos_token_id)
         self.eos = eos_token_id
         self.pad = pad_token_id
@@ -102,15 +125,12 @@ class ContinuousBatchingEngine:
                                watermark=wm, policy=cfg.admission_policy)
         # One extra scratch page (index num_pages): inactive slots point
         # their whole block table at it, so their masked lockstep writes
-        # never touch a live request's pages.  Zero-initialised: masked
-        # slots still enter the PV product with p = 0.
+        # never touch a live request's pages.
         self._scratch = self.num_pages
-        shape = (self.num_pages + 1, model_cfg.num_kv_heads, ps,
-                 model_cfg.head_dim)
-        dt = self.model.embed.weight.dtype
         self._pools = [
-            {"k_pages": torch.zeros(shape, dtype=dt, device=self.device),
-             "v_pages": torch.zeros(shape, dtype=dt, device=self.device)}
+            init_pools(self.num_pages + 1, model_cfg.num_kv_heads,
+                       model_cfg.head_dim, ps, self.model.embed.weight.dtype,
+                       self.device, quantized=cfg.quantize_kv)
             for _ in range(model_cfg.num_layers)]
         self._bt = np.full((self.slots, self.pages_per_seq), self._scratch,
                            np.int32)
@@ -119,7 +139,7 @@ class ContinuousBatchingEngine:
         self._slot_req = np.full(self.slots, -1, np.int64)
         self._phase = np.zeros(self.slots, np.int8)
         self._est_len = np.zeros(self.slots, np.int64)  # host len bound
-        self._reqinfo: dict = {}     # req id -> (ids, budget)
+        self._reqinfo: dict = {}     # member id -> (ids, budget, head, j, k)
         self._admit_seq: dict = {}   # req id -> admission counter
         self._admit_counter = 0
         self._gen: Optional[torch.Generator] = None
@@ -154,9 +174,12 @@ class ContinuousBatchingEngine:
     # -- weights and sampling stream ------------------------------------
     @torch.no_grad()
     def load_weights(self, state_dict) -> None:
-        """Install new weights (a state dict of the engine's model),
-        cast to the model's dtype."""
-        self.model.load_state_dict(state_dict)
+        """Install new weights: a state dict of the unquantized model (f32
+        or bf16), cast to the compute dtype and, with
+        ``cfg.quantize_weights``, quantized to int8
+        (:func:`~orion_tpu_torch.models.transformer.prep_decode_params`)."""
+        self.model.load_state_dict(prep_decode_params(
+            state_dict, self.mc, self.cfg.quantize_weights))
 
     def reset_rng(self, seed: int) -> None:
         """Seed (or reseed) the service sampling stream."""
@@ -165,12 +188,15 @@ class ContinuousBatchingEngine:
 
     # -- request surface --------------------------------------------------
     def submit(self, req_id: int, ids, budget: Optional[int] = None,
-               priority: int = 0, deadline: Optional[int] = None) -> None:
-        """Enqueue a request.  ``budget`` <= cfg.max_new_tokens caps the
+               k: int = 1, priority: int = 0,
+               deadline: Optional[int] = None) -> None:
+        """Enqueue a request, or a k-clone sampling group with ids
+        req_id .. req_id+k-1.  ``budget`` <= cfg.max_new_tokens caps the
         completion; priority/deadline feed cfg.admission_policy."""
         cfg = self.cfg
         ids = np.asarray(ids, np.int32)
         budget = int(cfg.max_new_tokens if budget is None else budget)
+        k = int(k)
         if len(ids) < 1 or len(ids) > cfg.max_prompt_len:
             raise ValueError(
                 f"prompt {req_id}: length {len(ids)} outside "
@@ -179,12 +205,25 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"request {req_id}: budget {budget} outside "
                 f"[1, max_new_tokens={cfg.max_new_tokens}]")
-        if req_id in self._reqinfo:
-            raise ValueError(f"request id {req_id} already in flight")
-        self.sched.add(req_id, len(ids), budget, priority=priority,
-                       deadline=-1 if deadline is None else int(deadline))
-        self._reqinfo[req_id] = (ids, budget)
-        self._submit_time[req_id] = time.perf_counter()
+        if not 1 <= k <= self.slots:
+            raise ValueError(
+                f"request {req_id}: group of {k} clones can never "
+                f"be admitted (max_slots={self.slots})")
+        for j in range(k):
+            if req_id + j in self._reqinfo:
+                raise ValueError(f"request id {req_id + j} already "
+                                 "in flight")
+        dl = -1 if deadline is None else int(deadline)
+        if k > 1:
+            self.sched.add_group(req_id, len(ids), budget, k,
+                                 priority=priority, deadline=dl)
+        else:
+            self.sched.add(req_id, len(ids), budget, priority=priority,
+                           deadline=dl)
+        now = time.perf_counter()
+        for j in range(k):
+            self._reqinfo[req_id + j] = (ids, budget, req_id, j, k)
+            self._submit_time[req_id + j] = now
 
     @property
     def pending(self) -> int:
@@ -205,9 +244,12 @@ class ContinuousBatchingEngine:
                  ) -> List[CompletedRequest]:
         """Run all requests to completion; returns them in finish order.
 
-        requests: iterable of (req_id, prompt_ids) or (req_id,
-        prompt_ids, budget).  Every request is validated before the
-        first is submitted, so a bad one leaves the engine untouched."""
+        requests: iterable of (req_id, prompt_ids), (req_id,
+        prompt_ids, budget) or (req_id, prompt_ids, budget, k) — a
+        sampling group of k clones with ids req_id .. req_id+k-1 (the
+        caller keeps the id ranges disjoint).  Every request is
+        validated before the first is submitted, so a bad one leaves
+        the engine untouched."""
         self.reset_rng(seed)
         reqs = []
         seen = set(self._reqinfo)
@@ -215,9 +257,16 @@ class ContinuousBatchingEngine:
             req_id, ids = r[0], np.asarray(r[1], np.int32)
             budget = (int(r[2]) if len(r) > 2 and r[2] is not None
                       else self.cfg.max_new_tokens)
-            if req_id in seen:
-                raise ValueError(f"request id {req_id} already in flight")
-            seen.add(req_id)
+            k = int(r[3]) if len(r) > 3 else 1
+            if not 1 <= k <= self.slots:
+                raise ValueError(
+                    f"request {req_id}: group of {k} clones can never "
+                    f"be admitted (max_slots={self.slots})")
+            for j in range(k):
+                if req_id + j in seen:
+                    raise ValueError(
+                        f"request id {req_id + j} already in flight")
+                seen.add(req_id + j)
             if len(ids) > self.cfg.max_prompt_len:
                 raise ValueError(f"prompt {req_id} longer than "
                                  f"max_prompt_len={self.cfg.max_prompt_len}")
@@ -225,30 +274,46 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"request {req_id}: budget {budget} outside "
                     f"[1, max_new_tokens={self.cfg.max_new_tokens}]")
-            reqs.append((req_id, ids, budget))
-        for req_id, ids, budget in reqs:
-            self.submit(req_id, ids, budget=budget)
+            reqs.append((req_id, ids, budget, k))
+        for req_id, ids, budget, k in reqs:
+            self.submit(req_id, ids, budget=budget, k=k)
         out: List[CompletedRequest] = []
         while self.sched.waiting or self.sched.running:
             out.extend(self.step())
         return out
 
-    def generate_batch(self, prompt_ids, prompt_lens, seed: int
-                       ) -> GenerationResult:
+    def generate_batch(self, prompt_ids, prompt_lens, seed: int,
+                       group_size: int = 1) -> GenerationResult:
         """Run a batch of prompts as a request stream and pack the
         completions into a padded :class:`GenerationResult` (the JAX
-        engine's ``generate_batch`` without group admission).
+        engine's ``generate_batch``).
 
-        prompt_ids [B, P] right-padded, prompt_lens [B]; row i of the
-        result is prompt i's completion, sampled from the stream seeded
-        with ``seed``; completions are padded to cfg.max_new_tokens."""
+        prompt_ids [B, P] right-padded, prompt_lens [B]; sampled from
+        the stream seeded with ``seed``; completions are padded to
+        cfg.max_new_tokens.  ``group_size=k`` > 1: the prompts are the
+        UNIQUE ones, each sampled k times — one group admission per
+        prompt, or k solo requests when cfg.group_prefix_sharing is
+        False — and row i*k+j of the result is clone j of prompt i
+        (``np.repeat(prompts, k, axis=0)`` order).  Otherwise row i is
+        prompt i's completion."""
         T = self.cfg.max_new_tokens
+        k = int(group_size)
+        if k < 1:
+            raise ValueError(f"group_size must be >= 1, got {k}")
         prompt_ids = np.asarray(prompt_ids, np.int32)
         prompt_lens = np.asarray(prompt_lens, np.int32)
         B = prompt_ids.shape[0]
-        by_id = {r.req_id: r for r in self.generate(
-            [(i, prompt_ids[i, :prompt_lens[i]]) for i in range(B)],
-            seed=seed)}
+        if k > 1 and self.cfg.group_prefix_sharing:
+            reqs = [(i * k, prompt_ids[i, :prompt_lens[i]], None, k)
+                    for i in range(B)]
+        else:
+            reqs = [(i * k + j, prompt_ids[i, :prompt_lens[i]])
+                    for i in range(B) for j in range(k)]
+        by_id = {r.req_id: r for r in self.generate(reqs, seed=seed)}
+        if k > 1:
+            prompt_ids = np.repeat(prompt_ids, k, axis=0)
+            prompt_lens = np.repeat(prompt_lens, k, axis=0)
+            B *= k
         tokens = np.full((B, T), self.pad, np.int32)
         logps = np.zeros((B, T), np.float32)
         plogps = np.zeros((B, T), np.float32)
@@ -279,12 +344,20 @@ class ContinuousBatchingEngine:
                 f"{self.sched.waiting} request(s) can never be "
                 f"scheduled: pool of {self.num_pages} pages is too "
                 "small for a single request's admission")
+        # One prefill row per admitted group (a solo request is a group
+        # of one): head id -> {"ids", "budget", "slots": {j: (rid, slot)}}.
+        # The scheduler admits a group's clones together.
+        entries: dict = {}
         for rid, slot in admitted:
+            ids, budget, head, j, _k = self._reqinfo[rid]
             self._slot_req[slot] = rid
             self._admit_seq[rid] = self._admit_counter
             self._admit_counter += 1
-        if admitted:
-            self._activate(admitted)
+            e = entries.setdefault(head, {"ids": ids, "budget": budget,
+                                          "slots": {}})
+            e["slots"][j] = (rid, slot)
+        if entries:
+            self._activate(list(entries.values()))
         self._extend_running()
         out: List[CompletedRequest] = []
         if (self._phase == _DECODE).any():
@@ -300,35 +373,56 @@ class ContinuousBatchingEngine:
                 self.ttft[rid] = now - t0
         return out
 
-    def _activate(self, admitted) -> None:
-        """Prefill the admitted prompts through their block tables,
-        sample each request's first token and seed its slot state."""
+    def _activate(self, entries) -> None:
+        """Prefill each admitted group's prompt once through its first
+        clone's block table, give every other clone a private copy of
+        the partial last prompt page, sample each clone's first token
+        from the group's logits and seed the clones' slot state."""
         cfg = self.cfg
+        ps = cfg.page_size
         pps = self.pages_per_seq
-        n = len(admitted)
-        Pw = max(len(self._reqinfo[rid][0]) for rid, _ in admitted)
-        # ONE host->device upload: [prompt_len, slot, budget,
-        # block-table row (pps), prompt ids right-padded (Pw)].
-        packed = np.full((n, 3 + pps + Pw), self.pad, np.int32)
-        for b, (rid, slot) in enumerate(admitted):
-            ids, budget = self._reqinfo[rid]
-            pages = self.sched.pages(rid)
-            self._bt[slot, :len(pages)] = pages
-            # Unreserved tail -> scratch: prefill writes KV for every
-            # padded position, which must not land on a live page.
-            self._bt[slot, len(pages):] = self._scratch
-            self._phase[slot] = _DECODE
-            self._est_len[slot] = len(ids)
-            packed[b, :3] = (len(ids), slot, budget)
-            packed[b, 3:3 + pps] = self._bt[slot]
-            packed[b, 3 + pps:3 + pps + len(ids)] = ids
+        n = len(entries)
+        Pw = max(len(e["ids"]) for e in entries)
+        # ONE host->device upload, flat: per prefill row [prompt_len,
+        # block-table row (pps), prompt ids right-padded (Pw)]; per clone
+        # [row, slot, budget]; then the page copies' sources and
+        # destinations.
+        rows = np.full((n, 1 + pps + Pw), self.pad, np.int32)
+        members, copy_src, copy_dst = [], [], []
+        for b, e in enumerate(entries):
+            ids = e["ids"]
+            plen = len(ids)
+            shared = plen // ps
+            for j in sorted(e["slots"]):
+                rid, slot = e["slots"][j]
+                pages = self.sched.pages(rid)
+                self._bt[slot, :len(pages)] = pages
+                # Unreserved tail -> scratch: prefill writes KV for every
+                # padded position, which must not land on a live page.
+                self._bt[slot, len(pages):] = self._scratch
+                self._phase[slot] = _DECODE
+                self._est_len[slot] = plen
+                members.append((b, slot, e["budget"]))
+                if j == 0:
+                    rows[b, 1:1 + pps] = self._bt[slot]
+                elif plen % ps:
+                    # The partial last prompt page is appended to by
+                    # decode, so each other clone gets its own copy.
+                    copy_src.append(rows[b, 1 + shared])
+                    copy_dst.append(self._bt[slot, shared])
+            rows[b, 0] = plen
+            rows[b, 1 + pps:1 + pps + plen] = ids
         self._bt_dev = None
-        dev = torch.from_numpy(packed).to(self.device)
-        plen = dev[:, 0]
-        slots = dev[:, 1].to(torch.int64)
-        budgets = dev[:, 2]
-        bt_rows = dev[:, 3:3 + pps]
-        prompt = dev[:, 3 + pps:]
+        m, c = len(members), len(copy_src)
+        flat = np.concatenate([rows.reshape(-1),
+                               np.asarray(members, np.int32).reshape(-1),
+                               np.asarray(copy_src + copy_dst, np.int32)])
+        dev = torch.from_numpy(flat).to(self.device)
+        prow = dev[:rows.size].view(rows.shape)
+        mem = dev[rows.size:rows.size + 3 * m].view(m, 3)
+        plen = prow[:, 0]
+        bt_rows = prow[:, 1:1 + pps]
+        prompt = prow[:, 1 + pps:]
         positions = torch.arange(Pw, dtype=torch.int32,
                                  device=self.device)[None, :].expand(n, Pw)
         cache = [{**p, "block_tables": bt_rows} for p in self._pools]
@@ -336,10 +430,23 @@ class ContinuousBatchingEngine:
         logits = self.model(prompt, positions, cache,
                             logits_positions=(plen - 1)[:, None])[:, 0]
         self.prefill_forwards += 1
+        if c:
+            # After the prompt KV is written: every pool key, scales too.
+            cp = dev[rows.size + 3 * m:].to(torch.int64)
+            src, dst = cp[:c], cp[c:]
+            for p in self._pools:
+                for arr in p.values():
+                    arr[dst] = arr[src]
+        # Every clone samples from its group's shared logits.
+        member_rows = mem[:, 0].to(torch.int64)
+        slots = mem[:, 1].to(torch.int64)
+        budgets = mem[:, 2]
+        logits = logits[member_rows]
+        lens = plen[member_rows]
         kw = {}
         if cfg.effective_min_new(self.eos) > 0:
             # Nothing generated yet: every terminator is suppressed.
-            kw["forbid"] = eos_forbid_mask(n, logits.shape[-1], self.eos,
+            kw["forbid"] = eos_forbid_mask(m, logits.shape[-1], self.eos,
                                            True, cfg.stop_token_ids,
                                            device=self.device)
         tok0, lp0, plp0 = sample_tokens(
@@ -348,7 +455,7 @@ class ContinuousBatchingEngine:
         d0 = is_stop_token(tok0, self.eos, cfg.stop_token_ids)
         st = self._state
         st["cur_tok"][slots] = tok0
-        st["lengths"][slots] = plen
+        st["lengths"][slots] = lens
         st["budget"][slots] = budgets
         st["done"][slots] = d0 | (budgets <= 1)
         st["n_new"][slots] = 1
@@ -429,7 +536,7 @@ class ContinuousBatchingEngine:
             if self._phase[slot] != _DECODE:
                 continue
             rid = int(self._slot_req[slot])
-            ids, budget = self._reqinfo[rid]
+            ids, budget = self._reqinfo[rid][:2]
             target = min(len(ids) + budget,
                          int(self._est_len[slot]) + self.segment_len)
             while True:
@@ -457,10 +564,14 @@ class ContinuousBatchingEngine:
         """Recompute-preemption: return the victim's pages and slot and
         requeue it (the scheduler keeps its arrival position); its
         partial completion is discarded and it restarts from the
-        prompt.  The zombie slot keeps decoding into the scratch page
-        until a later admission re-seeds it — masked work."""
+        prompt, a group clone as a SOLO request (its group mates keep
+        their shared pages through the scheduler's refcounts).  The
+        zombie slot keeps decoding into the scratch page until a later
+        admission re-seeds it — masked work."""
         slot = self.sched.slot(rid)
         self.sched.preempt(rid)
+        ids, budget = self._reqinfo[rid][:2]
+        self._reqinfo[rid] = (ids, budget, rid, 0, 1)
         self._slot_req[slot] = -1
         self._phase[slot] = _EMPTY
         self._admit_seq.pop(rid, None)

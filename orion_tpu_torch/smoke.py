@@ -9,8 +9,14 @@ profiler, so the two always run the same work.
   orion_tpu_torch.profile_train``): the sync GRPO trainer at Pythia-1B
   width and full depth, f32 master weights from seed 0 with bf16
   compute; 8 prompts of 64-256 tokens x group 4 = 32 rollouts of 128
-  tokens at temperature 1, 4 minibatches of 8, lr 1e-6, clip 1.0, KL
+  tokens at temperature 1 (each prompt prefilled once, its 4 clones
+  sharing its prompt pages), 4 minibatches of 8, lr 1e-6, clip 1.0, KL
   0.05, rewarded by the share of even token ids.
+
+``int8=True`` gives each mix's int8 serving twin (the engine phase's
+``engine_int8``, the train phase's ``train_int8``, the profilers'
+``--int8``): the same mix with ``quantize_weights=True,
+quantize_kv=True`` — int8 Dense weights and int8 KV pools (kernel D').
 """
 
 from __future__ import annotations
@@ -27,16 +33,24 @@ from orion_tpu_torch.trainers import GRPOTrainer
 EOS = 0  # Pythia's <|endoftext|>
 
 
+def int8_flags(int8: bool) -> dict:
+    """The RolloutConfig fields of the int8 serving twin of a mix."""
+    return {"quantize_weights": int8, "quantize_kv": int8}
+
+
 def smoke_engine_and_requests(n_requests: int = 64, seed: int = 0,
-                              device="cuda") -> tuple:
-    """Build the engine (model weights from seed 0) and the request list
-    ``[(req_id, prompt_ids, budget)]`` from ``seed``, and warm the engine
-    up (library loads, allocator) on two short requests whose ids lie
-    outside the list.  Returns ``(cfg, model, engine, requests)``."""
+                              device="cuda", int8: bool = False) -> tuple:
+    """Build the engine (model weights from seed 0; int8 weights and
+    pools with ``int8``) and the request list ``[(req_id, prompt_ids,
+    budget)]`` from ``seed``, and warm the engine up (library loads,
+    allocator) on two short requests whose ids lie outside the list.
+    Returns ``(cfg, model, engine, requests)``; ``model`` is the bf16
+    model the engine's weights come from."""
     cfg = ModelConfig.pythia_1b()
     model = Transformer(cfg, device=device, seed=0)
     rcfg = RolloutConfig(max_prompt_len=512, max_new_tokens=128,
-                         temperature=0.0, page_size=64, max_batch_size=32)
+                         temperature=0.0, page_size=64, max_batch_size=32,
+                         **int8_flags(int8))
     eng = ContinuousBatchingEngine(model, cfg, rcfg, eos_token_id=EOS,
                                    device=device)
     rng = np.random.RandomState(seed)
@@ -66,15 +80,18 @@ def prompt_batches(n: int, vocab: int, max_len: int, seed: int):
         yield {"prompt_ids": ids, "prompt_lens": lens}
 
 
-def smoke_trainer_and_prompts(seed: int = 0, device="cuda") -> tuple:
-    """Build the GRPO smoke trainer (policy weights from seed 0) and its
-    prompt stream from ``seed``.  Returns ``(cfg, trainer, prompts)``."""
+def smoke_trainer_and_prompts(seed: int = 0, device="cuda",
+                              int8: bool = False) -> tuple:
+    """Build the GRPO smoke trainer (policy weights from seed 0; an int8
+    rollout engine with ``int8``) and its prompt stream from ``seed``.
+    Returns ``(cfg, trainer, prompts)``."""
     mc = ModelConfig.pythia_1b()
     cfg = GRPOConfig(
         model=mc,
         rollout=RolloutConfig(engine="continuous", max_batch_size=32,
                               page_size=64, max_prompt_len=256,
-                              max_new_tokens=128, temperature=1.0),
+                              max_new_tokens=128, temperature=1.0,
+                              **int8_flags(int8)),
         optimizer=OptimizerConfig(learning_rate=1e-6, grad_clip=1.0),
         rollout_batch_size=8, group_size=4, minibatch_size=8,
         num_epochs=1, kl_coef=0.05, log_every=0, seed=0)

@@ -67,6 +67,36 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return schedule
 
 
+def split_group_layout(prompt_ids, prompt_lens, k: int):
+    """Recover the unique prompts from prepare_prompts' repeated i*k+j
+    layout (to hand a group-capable engine B/k unique prompts +
+    group_size instead of B pre-repeated clones); raises if the batch
+    is not in that layout."""
+    ids = np.asarray(prompt_ids)
+    lens = np.asarray(prompt_lens)
+    uids, ulens = ids[::k], lens[::k]
+    if not (np.array_equal(ids, np.repeat(uids, k, axis=0))
+            and np.array_equal(lens, np.repeat(ulens, k))):
+        raise ValueError(
+            f"group_size={k} passed but prompts are not in the "
+            "repeated i*k+j layout prepare_prompts produces")
+    return uids, ulens
+
+
+def dispatch_generate_batch(engine, prompt_ids, prompt_lens, seed,
+                            group_size: int = 1):
+    """The group-aware dispatch onto a generate_batch-style engine: a
+    group-capable engine gets the B/k unique prompts + group_size (so
+    it can share prompt pages across each group's clones); anything
+    else gets the repeated batch unchanged.  Output layout is the
+    repeated i*k+j order either way."""
+    k = int(group_size)
+    if k > 1 and getattr(engine, "supports_groups", False):
+        uids, ulens = split_group_layout(prompt_ids, prompt_lens, k)
+        return engine.generate_batch(uids, ulens, seed, group_size=k)
+    return engine.generate_batch(prompt_ids, prompt_lens, seed)
+
+
 def make_optimizer(cfg: OptimizerConfig, params) -> torch.optim.AdamW:
     """AdamW over ``params`` (the learning rate is set from the schedule
     before each step).  Gradient clipping is :func:`clip_by_global_norm`,
@@ -110,7 +140,9 @@ class BaseTrainer:
         in place.  The frozen reference is a snapshot of it at
         construction, stored in ``cfg.ref_param_dtype`` (None: the
         policy's dtype); the engine samples from its own copy in
-        ``cfg.model.dtype``, refreshed by :meth:`sync_weights`.
+        ``cfg.model.dtype`` (int8 under ``cfg.rollout.quantize_weights``),
+        refreshed by :meth:`sync_weights`.  The policy, the reference
+        and the update never see quantization.
       reward_fn: host callable (GenerationResult, meta) -> [B] scores.
       eos/pad token ids: generation termination.
       device: None means the card (raises without one); ``"cpu"`` for
@@ -220,13 +252,17 @@ class BaseTrainer:
         return int(self._seed_rng.randint(2 ** 31 - 1))
 
     def generate(self, prompt_ids, prompt_lens,
-                 seed: Optional[int] = None) -> GenerationResult:
-        """Sample completions for a (group-repeated) prompt batch.  The
-        engine's ``supports_groups`` is False until k-clone group
-        admission is ported, so it takes the repeated batch as it is;
-        row i*k+j is clone j of prompt i either way."""
+                 seed: Optional[int] = None,
+                 group_size: int = 1) -> GenerationResult:
+        """Sample completions for a prompt batch.  ``group_size=k`` > 1
+        says the (prepare_prompts-repeated) batch is B/k unique prompts
+        x k clones: the engine then prefills each unique prompt once and
+        shares its prompt pages across the clones.  Row i*k+j is clone j
+        of prompt i either way."""
         seed = self.next_seed() if seed is None else seed
-        return self.engine.generate_batch(prompt_ids, prompt_lens, seed)
+        return dispatch_generate_batch(self.engine, prompt_ids,
+                                       prompt_lens, seed,
+                                       group_size=group_size)
 
     def score(self, result: GenerationResult, meta: dict) -> np.ndarray:
         """Sequence-level scores [B] as host f32; non-finite scores are
@@ -277,7 +313,8 @@ class BaseTrainer:
     def make_experience(self, batch: dict):
         """prompts -> generate -> score -> experience."""
         ids, lens, meta = self.prepare_prompts(batch)
-        result = self.generate(ids, lens)
+        result = self.generate(ids, lens,
+                               group_size=getattr(self.cfg, "group_size", 1))
         return self.build_experience(result, self.score(result, meta))
 
     def update_epochs(self, experience: Dict[str, torch.Tensor]) -> dict:
@@ -299,8 +336,9 @@ class BaseTrainer:
         return {k: float(np.mean(host[:, i])) for i, k in enumerate(keys)}
 
     def sync_weights(self) -> None:
-        """Trainer -> rollout weight sync: the engine's copy takes the
-        policy's weights, cast to its dtype."""
+        """Trainer -> rollout weight sync: the engine takes the policy's
+        state dict and casts it to its dtype (and quantizes it under
+        ``cfg.rollout.quantize_weights``)."""
         self.engine.load_weights(self.model.state_dict())
 
     def _wait(self) -> None:

@@ -23,7 +23,9 @@ from orion_tpu_torch.ops.flash_attention import (
     flash_attention_gqa, flash_attention_reference, flash_bwd_dkv,
     flash_bwd_dq)
 from orion_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_reference)
+    paged_decode_attention, paged_decode_attention_int8,
+    paged_decode_attention_reference)
+from orion_tpu_torch.ops.quant import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -243,6 +245,61 @@ def test_paged_kernel_matches_plain(shape, dtype):
     _assert_close(out, plain, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", PAGED, ids=lambda s: "x".join(
+    str(x) for x in s))
+def test_paged_int8_kernel_matches_plain(shape, dtype):
+    """Kernel D' (int8 pools, f32 per-slot scales) against its plain
+    version; one more launch on D''s count and none on D's."""
+    B, H, Hkv, D, ps, mp = shape
+    rng = np.random.RandomState(B + D + 1)
+    n = B * mp + 1
+    q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32)).cuda()
+    pools = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.randn(n, Hkv, ps, D).astype(np.float32))
+        xq, xs = quantize_kv(x.cuda())
+        pools += [xq, xs[:, :, None, :].contiguous()]
+    kp, ks, vp, vs = pools
+    bt = (rng.permutation(n - 1)[:B * mp] + 1).reshape(B, mp)
+    lens = rng.randint(1, ps * mp + 1, B)
+    lens[0] = 1
+    lens[-1] = ps * (mp - 1) + 1      # one token on its last page
+    used = (lens + ps - 1) // ps
+    for b in range(B):
+        bt[b, used[b]:] = 0  # padding pages point at page 0
+    bt = torch.from_numpy(bt.astype(np.int32)).cuda()
+    lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    q = q.to(dtype)
+    d0, q0 = (paged_decode_attention.launches,
+              paged_decode_attention_int8.launches)
+    out = paged_decode_attention_int8(q, kp, vp, ks, vs, bt, lens, D ** -0.5)
+    assert (paged_decode_attention.launches,
+            paged_decode_attention_int8.launches) == (d0, q0 + 1)
+    assert out.dtype == dtype
+    kw = {"k_scales": ks, "v_scales": vs}
+    plain = paged_decode_attention_reference(q, kp, vp, bt, lens,
+                                             D ** -0.5, **kw)
+    ref = paged_decode_attention_reference(q.float(), kp, vp, bt, lens,
+                                           D ** -0.5, **kw)
+    _assert_close(out, plain, ref, dtype)
+
+
+def test_paged_int8_kernel_refuses_float_pools_and_missing_scales():
+    q = torch.zeros(2, 4, 64, device="cuda")
+    pool = torch.zeros(3, 4, 16, 64, device="cuda")
+    scales = torch.ones(3, 4, 1, 16, device="cuda")
+    bt = torch.zeros(2, 1, dtype=torch.int32, device="cuda")
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int8 pools take scales"):
+        paged_decode_attention_int8(q, pool, pool, scales, scales, bt, lens,
+                                    0.125)
+    with pytest.raises(ValueError, match="need k_scales"):
+        paged_decode_attention(q, pool.to(torch.int8), pool.to(torch.int8),
+                               bt, lens, 0.125)
+
+
 def test_paged_kernel_clamps_length_past_table():
     """A seq_len beyond max_pages * ps reads only the table's pages, as
     the plain version (which gathers max_pages pages) does."""
@@ -263,8 +320,25 @@ def test_paged_kernel_clamps_length_past_table():
 
 
 def test_engine_on_card_matches_engine_on_cpu():
-    """The port's engine on the card (both kernels on its path) gives the
-    same greedy tokens as on the CPU (plain versions), tiny f32 model."""
+    """The port's engine on the card (kernels A and D; solo requests and
+    groups of 2 clones) gives the same greedy tokens as on the CPU
+    (plain versions), tiny f32 model."""
+    _engine_card_vs_cpu(int8=False)
+
+
+def test_int8_engine_on_card_matches_engine_on_cpu():
+    """The same with int8 weights and int8 pools: kernels A and D' on the
+    card, D never.  Each device quantizes its own K and V, whose f32
+    values differ in the last bits, so an element may round to the
+    neighbouring int8 step (~1% of its vector's largest entry):
+    logprobs within INT8_LP_ATOL, tokens identical."""
+    _engine_card_vs_cpu(int8=True)
+
+
+INT8_LP_ATOL = 1e-2
+
+
+def _engine_card_vs_cpu(int8):
     from orion_tpu_torch.config import ModelConfig, RolloutConfig
     from orion_tpu_torch.models import Transformer
     from orion_tpu_torch.rollout.continuous import ContinuousBatchingEngine
@@ -272,10 +346,15 @@ def test_engine_on_card_matches_engine_on_cpu():
     cfg = ModelConfig.tiny("llama", dtype="float32", hidden_size=256,
                            num_heads=4, num_kv_heads=2)
     rcfg = RolloutConfig(max_prompt_len=24, max_new_tokens=12,
-                         temperature=0.0, page_size=16, max_batch_size=3)
+                         temperature=0.0, page_size=16, max_batch_size=3,
+                         quantize_weights=int8, quantize_kv=int8)
     rng = np.random.RandomState(1)
     reqs = [(i, rng.randint(1, cfg.vocab_size, rng.randint(3, 24)))
             for i in range(5)]
+    reqs += [(10 + 2 * i, rng.randint(1, cfg.vocab_size, 20), None, 2)
+             for i in range(2)]
+    decode = paged_decode_attention_int8 if int8 else paged_decode_attention
+    d_before = paged_decode_attention.launches
     cpu_model = Transformer(cfg, device="cpu")
     card_model = Transformer(cfg, device="cuda")
     card_model.load_state_dict(cpu_model.state_dict())
@@ -284,15 +363,17 @@ def test_engine_on_card_matches_engine_on_cpu():
     for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
         eng = ContinuousBatchingEngine(model, cfg, rcfg, segment_len=4,
                                        device=dev)
-        f0, p0 = (flash_attention_gqa.launches,
-                  paged_decode_attention.launches)
+        f0, p0 = flash_attention_gqa.launches, decode.launches
         out[dev] = {r.req_id: r for r in eng.generate(reqs)}
         launches[dev] = (flash_attention_gqa.launches - f0,
-                         paged_decode_attention.launches - p0)
+                         decode.launches - p0)
     assert launches["cpu"] == (0, 0)
     assert min(launches["cuda"]) > 0
+    if int8:
+        assert paged_decode_attention.launches == d_before
     for i in out["cpu"]:
         np.testing.assert_array_equal(out["cuda"][i].tokens,
                                       out["cpu"][i].tokens)
         np.testing.assert_allclose(out["cuda"][i].logprobs,
-                                   out["cpu"][i].logprobs, atol=F32_ATOL)
+                                   out["cpu"][i].logprobs,
+                                   atol=INT8_LP_ATOL if int8 else F32_ATOL)

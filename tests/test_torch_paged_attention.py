@@ -89,13 +89,27 @@ def test_padding_pages_ignored():
 
 
 def test_wrapper_on_cpu_is_plain_and_int8_raises():
+    """On the CPU the wrapper is the plain version, for float pools and
+    for int8 pools with their scales; a malformed int8 call (scales
+    beside float pools, or int8 pools without scales) raises."""
     args = [torch.from_numpy(x) for x in _setup(seed=3)]
     np.testing.assert_array_equal(
         paged_decode_attention(*args, 0.25).numpy(),
         paged_decode_attention_reference(*args, 0.25).numpy())
-    with pytest.raises(NotImplementedError):
-        paged_decode_attention(*args, 0.25, k_scales=args[1],
-                               v_scales=args[2])
+    q, kp, vp, bt, lens = args
+    scales = torch.ones(kp.shape[0], kp.shape[1], 1, kp.shape[2])
+    kq, vq = kp.to(torch.int8), vp.to(torch.int8)
+    np.testing.assert_array_equal(
+        paged_decode_attention(q, kq, vq, bt, lens, 0.25, k_scales=scales,
+                               v_scales=scales).numpy(),
+        paged_decode_attention_reference(q, kq, vq, bt, lens, 0.25,
+                                         k_scales=scales,
+                                         v_scales=scales).numpy())
+    with pytest.raises(ValueError, match="int8 pools take scales"):
+        paged_decode_attention(*args, 0.25, k_scales=scales,
+                               v_scales=scales)
+    with pytest.raises(ValueError, match="need k_scales"):
+        paged_decode_attention(q, kq, vq, bt, lens, 0.25)
 
 
 def test_write_and_gather_match_jax():

@@ -46,7 +46,8 @@ def test_port_imports_nothing_of_jax_or_orion_tpu():
     scanned = {os.path.relpath(p, REPO) for p in files}
     assert {f"orion_tpu_torch/{m}.py" for m in (
         "trainers/base", "trainers/grpo", "algos/advantages", "algos/kl",
-        "algos/losses", "ops/logprobs", "rollout/engine")} <= scanned
+        "algos/losses", "ops/logprobs", "ops/quant",
+        "rollout/engine")} <= scanned
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
            for p in files for line, mod in _imported_roots(p)
            if mod in FORBIDDEN]
