@@ -12,7 +12,9 @@ printing one JSON line:
    together) and the native page scheduler, with their build seconds.
 3. ``kernels`` — each kernel against its plain PyTorch version on the
    card (bf16 queries; bf16 pools for D, int8 pools for D') at the
-   serving and training slices' shapes, with times and bounds.
+   serving, training and long-context slices' shapes, with times and
+   bounds; the ring chunks A', B' and C' at zigzag positions after one
+   rotation, so that some tiles and rows have no valid key.
 4. ``engine``  — the continuous-batching engine at Pythia-1B width
    (random seeded weights, bf16) serves 64 greedy requests; kernels A
    and D launch exactly as often as the waves and steps imply; 4
@@ -34,6 +36,15 @@ printing one JSON line:
    launched (D never), the ratio starts at 1, and after the sync the
    engine's int8 weights and scales equal ``prep_decode_params`` of the
    policy, bitwise.
+8. ``longctx`` — one training step of a Pythia-1B-width model at full
+   depth (f32 master weights from a seed, bf16 compute) on an 8,192-token
+   sequence, sequence parallel over a ring of 4 shards in zigzag layout
+   (``attention_impl="ring"``: kernels A', B' and C', 64 launches each),
+   against the same step dense (kernels A, B and C, 16 each): losses
+   within LONGCTX_LOSS_ATOL, every parameter's gradient in direction
+   and size as the train phase holds them (the k_proj bias on its
+   rotary dims, where its exact gradient is not 0); then one AdamW step
+   from the ring's gradients leaves every parameter finite.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -86,6 +97,9 @@ CLIP_FRAC_MAX = 1e-3
 # engine-vs-plain policy logprob gap, printed beside it); in the int8
 # phase both sides read the same int8 weights and the same int8 KV.
 MARGIN = 0.25
+# Long-context phase: the ring and the dense step compute one loss in
+# bf16 through different kernels and merge orders.
+LONGCTX_LOSS_ATOL = 1e-2
 
 
 class CheckFailed(RuntimeError):
@@ -421,6 +435,171 @@ def flash_bwd_case(name, B, Lq, Lk, H, Hkv, D, offsets, seed):
             "dk_err": errs["dk"][0], "dv_err": errs["dv"][0],
             "ms": dkv_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]}}
+
+
+def _pair_counts(qpos, kvpos):
+    """Per row of [B, Lq] query and [B, Lk] key positions: the number of
+    (query, key) pairs with kv position <= q position, and the number
+    of keys valid for at least one query."""
+    import torch
+
+    kv_sorted = kvpos.long().sort(dim=1).values
+    per_query = torch.searchsorted(kv_sorted, qpos.long(), right=True)
+    keys = (kvpos.long() <= qpos.long().amax(dim=1, keepdim=True)).sum()
+    return per_query.sum().item(), keys.item()
+
+
+def chunk_case(name, S, B, L, H, Hkv, D, seed):
+    """Kernels A' (forward), B' (dq) and C' (dk, dv) against their plain
+    versions on one ring chunk, bf16: S ranks of B rows stacked
+    rank-major, each rank's queries at its zigzag positions of an
+    L-token sequence and its keys those of rank - 1 (after one
+    rotation), so some tiles and rows see no key.  The backward takes
+    the global O and LSE over the whole sequence's keys (a plain f32
+    evaluation) and a random dO."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch.ops.flash_attention import (
+        flash_attention_delta, flash_chunk_bwd_dkv, flash_chunk_bwd_dq,
+        flash_chunk_fwd, flash_chunk_fwd_reference,
+        flash_chunk_grads_reference)
+    from orion_tpu_torch.parallel import StackedRing
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev, bf = "cuda", torch.bfloat16
+    ring = StackedRing(S)
+    Ls = L // S
+    q, k, v, dout = (torch.randn(*s, generator=gen, device=dev).to(bf)
+                     for s in ((S * B, Ls, H, D), (S * B, Ls, Hkv, D),
+                               (S * B, Ls, Hkv, D), (S * B, Ls, H, D)))
+    pos = ring.shard(torch.arange(L, device=dev)[None].expand(B, L))
+    qpos = pos.to(torch.int32)
+    kvpos = ring.rotate(qpos)
+    scale = 1.0 / D ** 0.5
+    has_key = (kvpos[:, None, :] <= qpos[:, :, None]).any(-1)
+
+    out_k, lse_k = flash_chunk_fwd(q, k, v, qpos, kvpos, scale)
+    torch.cuda.synchronize()
+    out_p, _ = flash_chunk_fwd_reference(q, k, v, qpos, kvpos, scale)
+    ref, lse_r = flash_chunk_fwd_reference(q.float(), k.float(), v.float(),
+                                           qpos, kvpos, scale)
+    err_k = (out_k.float() - ref)[has_key].abs().max().item()
+    err_p = (out_p.float() - ref)[has_key].abs().max().item()
+    lse_rows, lse_ref_rows = lse_k.transpose(1, 2), lse_r.transpose(1, 2)
+    err_lse = (lse_rows - lse_ref_rows)[has_key].abs().max().item()
+    check(bool(torch.isfinite(out_k).all()), f"chunk {name}: non-finite")
+    check(err_k <= ERR_FACTOR * err_p,
+          f"chunk {name}: kernel err {err_k} > {ERR_FACTOR} x plain "
+          f"err {err_p}")
+    check(err_lse <= LSE_TOL, f"chunk {name}: lse err {err_lse}")
+    check(bool((out_k[~has_key] == 0).all())
+          and bool((lse_rows[~has_key] <= -1e29).all())
+          and not bool(has_key.all()),
+          f"chunk {name}: rows without a key must give O = 0 and "
+          f"LSE <= -1e29 ({int((~has_key).sum())} such rows)")
+
+    # Global O and LSE: each rank's queries against every key of its
+    # sequence, evaluated in f32 by the plain version.
+    k_all, v_all = (ring.unshard(x, zigzag=False).repeat(S, 1, 1, 1)
+                    for x in (k, v))
+    kv_all = ring.unshard(qpos, zigzag=False).repeat(S, 1)
+    out_g, glse = flash_chunk_fwd_reference(q.float(), k_all.float(),
+                                            v_all.float(), qpos, kv_all,
+                                            scale)
+    del k_all, v_all
+    out_g = out_g.to(bf)
+    delta = flash_attention_delta(out_g, dout)
+
+    def bwd_kernels():
+        return (flash_chunk_bwd_dq(q, k, v, qpos, kvpos, dout, glse, delta,
+                                   scale),
+                *flash_chunk_bwd_dkv(q, k, v, qpos, kvpos, dout, glse, delta,
+                                     scale))
+
+    got = bwd_kernels()
+    torch.cuda.synchronize()
+    plain = flash_chunk_grads_reference(q, k, v, qpos, kvpos, out_g, glse,
+                                        dout, scale)
+    refb = flash_chunk_grads_reference(q.float(), k.float(), v.float(), qpos,
+                                       kvpos, out_g.float(), glse,
+                                       dout.float(), scale)
+    errs = {}
+    for which, g, pl, rf in zip(("dq", "dk", "dv"), got, plain, refb):
+        e_k = (g.float() - rf).abs().max().item()
+        e_p = (pl.float() - rf).abs().max().item()
+        check(bool(torch.isfinite(g).all()), f"{which} {name}: non-finite")
+        check(e_k <= ERR_FACTOR * e_p,
+              f"{which} {name}: kernel err {e_k} > {ERR_FACTOR} x plain "
+              f"err {e_p}")
+        errs[which] = (e_k, e_p)
+    check(bool((got[0][~has_key] == 0).all()),
+          f"dq {name}: rows without a key must give dQ = 0")
+
+    ms = time_ms(lambda: flash_chunk_fwd(q, k, v, qpos, kvpos, scale))
+    plain_ms = time_ms(lambda: flash_chunk_fwd_reference(
+        q, k, v, qpos, kvpos, scale), reps=5)
+    dq_ms = time_ms(lambda: flash_chunk_bwd_dq(q, k, v, qpos, kvpos, dout,
+                                               glse, delta, scale))
+    dkv_ms = time_ms(lambda: flash_chunk_bwd_dkv(q, k, v, qpos, kvpos, dout,
+                                                 glse, delta, scale))
+    bwd_plain_ms = time_ms(lambda: flash_chunk_grads_reference(
+        q, k, v, qpos, kvpos, out_g, glse, dout, scale), reps=5)
+    # Yardstick only (the port never calls it): one SDPA call with a
+    # boolean mask built from the positions, and its backward (dq, dk
+    # and dv together) on a retained graph.  Rows without a key give
+    # NaN there; only the time is kept.
+    mask = (kvpos[:, None, :] <= qpos[:, :, None])[:, None]
+    gqa = {"enable_gqa": True} if H != Hkv else {}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale, **gqa))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        scale=scale, **gqa)
+    dot = dout.transpose(1, 2).contiguous()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                     retain_graph=True))
+
+    # Bounds, counting what this data needs: q (and dO, LSE, delta) and
+    # both position arrays read once; of K and V only the keys valid for
+    # some query of their row; each output written once; flops for the
+    # valid (query, key) pairs only (A' 2, B' 3, C' 4 products of 2·D
+    # flops per pair and head).
+    pairs, kv_rows = _pair_counts(qpos, kvpos)
+    pairs *= H
+    kv_bytes = 2 * 2 * kv_rows * Hkv * D
+    pos_bytes = 4 * (qpos.numel() + kvpos.numel())
+    fwd_bound = bound_ms(2 * (q.numel() + out_k.numel()) + kv_bytes
+                         + pos_bytes + 4 * lse_k.numel(), 4.0 * D * pairs,
+                         "bfloat16")
+    common = (2 * (q.numel() + dout.numel()) + kv_bytes + pos_bytes
+              + 4 * (glse.numel() + delta.numel()))
+    dq_bound = bound_ms(common + 2 * q.numel(), 6.0 * D * pairs, "bfloat16")
+    dkv_bound = bound_ms(common + 2 * 2 * k.numel(), 8.0 * D * pairs,
+                         "bfloat16")
+    shape = {"S": S, "B": B, "L": L, "Lq": Ls, "Lk": Ls, "H": H, "Hkv": Hkv,
+             "D": D, "rows_without_key": int((~has_key).sum()),
+             "valid_pairs": pairs}
+    return {
+        "case": name, "shape": shape,
+        "flash_chunk_fwd": {
+            "max_abs_err": err_k, "plain_bf16_err": err_p,
+            "lse_err": err_lse, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": fwd_bound[0],
+            "bound_by": fwd_bound[1]},
+        "flash_chunk_bwd_dq": {
+            "max_abs_err": errs["dq"][0], "plain_bf16_err": errs["dq"][1],
+            "ms": dq_ms, "plain_ms": bwd_plain_ms, "library_ms": lib_bwd_ms,
+            "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+        "flash_chunk_bwd_dkv": {
+            "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
+            "plain_bf16_err": max(errs["dk"][1], errs["dv"][1]),
+            "dk_err": errs["dk"][0], "dv_err": errs["dv"][0],
+            "ms": dkv_ms, "plain_ms": bwd_plain_ms,
+            "library_ms": lib_bwd_ms, "bound_ms": dkv_bound[0],
+            "bound_by": dkv_bound[1]}}
 
 
 # -- phases 4 and 5: the engine at Pythia-1B width, bf16 and int8 --------
@@ -799,6 +978,154 @@ def train_int8_phase(card: str) -> dict:
             "int8_weights_synced": n_q, **train_summary(cfg, run)}
 
 
+# -- phase 8: a sequence-parallel training step at 8,192 tokens ----------
+
+LONGCTX_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "flash_chunk_fwd", "flash_chunk_bwd_dq",
+                   "flash_chunk_bwd_dkv")
+
+
+def _longctx_step(model, ids, tgt, ring):
+    """One loss and backward of the long-context mix (``ring`` None:
+    dense), every kernel count set to 0 just before and read just
+    after.  Returns (loss, gradients, wall seconds, launches, peak GB)."""
+    import torch
+
+    from orion_tpu_torch.ops import flash_attention as fa
+    from orion_tpu_torch.smoke import longctx_loss
+
+    kernels = {"flash_fwd": fa.flash_attention_gqa,
+               **{name: getattr(fa, name) for name in LONGCTX_KERNELS[1:]}}
+    params = list(model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loss = longctx_loss(model, ids, tgt, ring)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    return (loss.item(), grads, wall, launches,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def longctx_phase(card: str) -> dict:
+    import torch
+
+    from orion_tpu_torch.config import OptimizerConfig
+    from orion_tpu_torch.smoke import smoke_longctx
+    from orion_tpu_torch.trainers.base import (clip_by_global_norm,
+                                               make_optimizer)
+
+    cfg, model, dense, ids, tgt, ring = smoke_longctx(seed=0)
+    L, S, n = ids.shape[1], ring.size, cfg.num_layers
+
+    # 1. The counted steps: the ring, then dense on the same weights.
+    ring_loss, ring_grads, ring_wall, ring_launches, ring_peak = \
+        _longctx_step(model, ids, tgt, ring)
+    dense_loss, dense_grads, dense_wall, dense_launches, dense_peak = \
+        _longctx_step(dense, ids, tgt, None)
+    zero = dict.fromkeys(LONGCTX_KERNELS, 0)
+    expect_ring = {**zero, "flash_chunk_fwd": n * S,
+                   "flash_chunk_bwd_dq": n * S, "flash_chunk_bwd_dkv": n * S}
+    expect_dense = {**zero, "flash_fwd": n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n}
+    check(ring_launches == expect_ring,
+          f"longctx: ring step launches {ring_launches}, expected "
+          f"{expect_ring}")
+    check(dense_launches == expect_dense,
+          f"longctx: dense step launches {dense_launches}, expected "
+          f"{expect_dense}")
+
+    # 2. Every parameter's gradient, ring against dense.  The k_proj
+    # bias is held on each head's rotary dims only: on the others its
+    # exact gradient is 0 (the bias shifts every score of a row by the
+    # same q·b, which the softmax cancels), so both steps hold only
+    # rounding noise there, whose share of the norm is reported.
+    rot = int(cfg.head_dim * cfg.rotary_pct)
+    live = (torch.arange(cfg.num_kv_heads * cfg.head_dim, device="cuda")
+            % cfg.head_dim) < rot
+    per_param = {}
+    dot = n1 = n2 = 0.0
+    for (name, _), g1, g2 in zip(model.named_parameters(), ring_grads,
+                                 dense_grads):
+        g1, g2 = g1.float(), g2.float()
+        a, b = (g1 * g1).sum().item(), (g2 * g2).sum().item()
+        dot, n1, n2 = dot + (g1 * g2).sum().item(), n1 + a, n2 + b
+        row = {}
+        if name.endswith("attn.k_proj.bias") and rot < cfg.head_dim:
+            row["zero_part_norm_share"] = {
+                "ring": (g1[~live].square().sum().item() / a) ** 0.5,
+                "dense": (g2[~live].square().sum().item() / b) ** 0.5}
+            g1, g2 = g1[live], g2[live]
+            a, b = (g1 * g1).sum().item(), (g2 * g2).sum().item()
+        d = (g1 * g2).sum().item()
+        per_param[name] = {"cosine": d / max((a * b) ** 0.5, 1e-30),
+                           "norm_ratio": (a / max(b, 1e-30)) ** 0.5, **row}
+    del dense_grads
+    failing = {name: r for name, r in per_param.items()
+               if r["cosine"] < GRAD_COS_MIN
+               or abs(r["norm_ratio"] - 1) > GRAD_NORM_RTOL}
+    worst = min(per_param, key=lambda k: per_param[k]["cosine"])
+    agree = {"all": {"cosine": dot / (n1 * n2) ** 0.5,
+                     "norm_ratio": (n1 / n2) ** 0.5},
+             "worst_param": worst, "worst": per_param[worst],
+             "failing": failing}
+
+    # 3. The walls again, warm, in turns: the counted pair paid the
+    # first use of each GEMM shape and kernel.
+    warm = {"ring": _longctx_step(model, ids, tgt, ring)[2],
+            "dense": _longctx_step(dense, ids, tgt, None)[2]}
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "longctx_gradients", "card": card,
+          "loss_ring": ring_loss, "loss_dense": dense_loss,
+          "wall_s": {"ring": ring_wall, "dense": dense_wall},
+          "warm_wall_s": warm, "per_param": per_param})
+    check(abs(ring_loss - dense_loss) <= LONGCTX_LOSS_ATOL,
+          f"longctx: ring loss {ring_loss} vs dense loss {dense_loss}")
+    check(not failing, "longctx: gradients of the ring step disagree with "
+          f"the dense step's: {failing}")
+
+    # 4. One AdamW step from the ring's gradients, with the smoke
+    # trainer's optimizer settings (global-norm clip, then AdamW).
+    ocfg = OptimizerConfig(learning_rate=1e-6, grad_clip=1.0)
+    params = list(model.parameters())
+    grad_norm = clip_by_global_norm(list(ring_grads), ocfg.grad_clip).item()
+    for p, g in zip(params, ring_grads):
+        p.grad = g
+    del ring_grads
+    watch = ("layers.0.attn.q_proj.weight", "layers.15.attn.k_proj.weight",
+             "embed.weight")
+    named = dict(model.named_parameters())
+    before = {name: named[name].detach().clone() for name in watch}
+    make_optimizer(ocfg, params).step()
+    check(all(bool(torch.isfinite(p).all()) for p in params),
+          "longctx: a parameter is not finite after the AdamW step")
+    for name in watch:
+        check(not torch.equal(before[name], named[name].detach()),
+              f"longctx: {name} did not change in the AdamW step")
+    return {"phase": "longctx", "card": card, "model": "pythia_1b",
+            "layers": n, "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+            "seq_len": L, "ring": S, "layout": "zigzag",
+            "tokens_per_shard": L // S, "loss_ring": ring_loss,
+            "loss_dense": dense_loss,
+            "loss_gap": abs(ring_loss - dense_loss),
+            "loss_atol": LONGCTX_LOSS_ATOL, "grad_agreement": agree,
+            "grad_cos_min": GRAD_COS_MIN, "grad_norm_rtol": GRAD_NORM_RTOL,
+            "grad_norm_before_clip": grad_norm,
+            "wall_s": {"ring": ring_wall, "dense": dense_wall},
+            "warm_wall_s": warm,
+            "peak_mem_gb": {"ring": ring_peak, "dense": dense_peak},
+            "launches_ring": ring_launches, "launches_dense": dense_launches,
+            # Each kernel ran on one of the two steps only.
+            "launches": {k: ring_launches[k] + dense_launches[k]
+                         for k in LONGCTX_KERNELS}}
+
+
 def main() -> int:
     try:
         import torch
@@ -852,23 +1179,31 @@ def main() -> int:
     bwd = [flash_bwd_case("pythia_train", 8, 384, 384, 8, 8, 256, None, 6),
            flash_bwd_case("llama_gqa", 4, 256, 256, 32, 8, 64, None, 7),
            flash_bwd_case("odd_ragged", 4, 389, 397, 8, 8, 256, 8, 8)]
+    chunk = [chunk_case("pythia_ring", 4, 1, 8192, 8, 8, 256, 11),
+             chunk_case("llama_gqa_ring", 4, 1, 4096, 32, 8, 64, 12)]
     emit({"phase": "kernels", "names": list(cuda_build.KERNELS),
           "card": card, "err_factor": ERR_FACTOR, "lse_tol": LSE_TOL,
           "flash_fwd": flash, "paged_decode": paged,
-          "paged_decode_int8": paged_int8, "flash_bwd": bwd})
+          "paged_decode_int8": paged_int8, "flash_bwd": bwd,
+          "flash_chunk": chunk})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     runs = {}
     for name, phase in (("engine", lambda: engine_phase(card)),
                         ("engine_int8", lambda: engine_phase(card, True)),
                         ("train", lambda: train_phase(card)),
-                        ("train_int8", lambda: train_int8_phase(card))):
+                        ("train_int8", lambda: train_int8_phase(card)),
+                        ("longctx", lambda: longctx_phase(card))):
         runs[name] = phase()
         emit(runs[name])
         gc.collect()
         torch.cuda.empty_cache()
 
     # Launches of each kernel on each path that runs it (0 where the
-    # path must not: D on the int8 paths, D' on the bf16 ones).
+    # path must not: D on the int8 paths, D' on the bf16 ones).  The
+    # longctx path counts its ring step (A', B', C') and its dense step
+    # (A, B, C) together.
     by_path = {}
     for path, res in runs.items():
         for kname, n in res["launches"].items():
@@ -897,7 +1232,16 @@ def main() -> int:
             bwd[0]["flash_bwd_dq"]),
         row("flash_bwd_dkv", "orion_tpu_torch/csrc/flash_bwd_dkv.cu",
             "orion_tpu/ops/pallas/flash_attention.py:397",
-            bwd[0]["flash_bwd_dkv"])]})
+            bwd[0]["flash_bwd_dkv"]),
+        row("flash_chunk_fwd", "orion_tpu_torch/csrc/flash_fwd.cu",
+            "orion_tpu/ops/pallas/flash_attention.py:575",
+            chunk[0]["flash_chunk_fwd"]),
+        row("flash_chunk_bwd_dq", "orion_tpu_torch/csrc/flash_bwd_dq.cu",
+            "orion_tpu/ops/pallas/flash_attention.py:590",
+            chunk[0]["flash_chunk_bwd_dq"]),
+        row("flash_chunk_bwd_dkv", "orion_tpu_torch/csrc/flash_bwd_dkv.cu",
+            "orion_tpu/ops/pallas/flash_attention.py:590",
+            chunk[0]["flash_chunk_bwd_dkv"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

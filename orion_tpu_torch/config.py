@@ -49,7 +49,9 @@ class ModelConfig:
     # ``dtype`` all the same (cast at use).
     param_dtype: str = "float32"
     # "auto": the hand flash kernel for Lq > 1 on CUDA, the reference
-    # einsum elsewhere; "reference": always the reference.
+    # einsum elsewhere; "reference": always the reference; "ring" /
+    # "ulysses": sequence parallel over the ring of an enclosing
+    # orion_tpu_torch.parallel.sequence_parallel block.
     attention_impl: str = "auto"
     # Dense layers read int8 weights with per-output-channel f32 scales
     # (``QuantLinear``, ops/quant.py).  Set only on the engine's serving
@@ -63,10 +65,11 @@ class ModelConfig:
         if self.arch == "neox":
             # GPT-NeoX has no GQA.
             self.num_kv_heads = self.num_heads
-        if self.attention_impl not in ("auto", "reference"):
+        if self.attention_impl not in ("auto", "reference", "ring",
+                                       "ulysses"):
             raise ValueError(
                 f"attention_impl={self.attention_impl!r}: the port has "
-                "'auto' and 'reference' only")
+                "'auto', 'reference', 'ring' and 'ulysses'")
 
     @staticmethod
     def llama3_1b() -> "ModelConfig":

@@ -1,11 +1,14 @@
 // Kernel C, flash_bwd_dkv: the dK/dV half of the causal flash-attention
-// backward, for training.
+// backward, for training; and kernel C', flash_chunk_bwd_dkv, its
+// ring-chunk form over explicit kv positions (KvPos = true).
 //
 // Replaces: orion_tpu/ops/pallas/flash_attention.py, _dkv_call (its
 // kernel body _dkv_kernel) together with the GQA group-sum that
 // _bwd_impl does after it in XLA, reached through flash_attention_gqa's
 // custom_vjp — the form without explicit kv positions (slot j holds
-// absolute position j).
+// absolute position j) — and, as C', the same with kv positions and
+// clamp=False, reached through flash_chunk_grads for ring attention's
+// backward.
 //
 // Semantics: with qs = q * scale, for each kv slot j of kv head g and
 // every query row i of the n_rep query heads h of its group with
@@ -30,6 +33,13 @@
 // with no per-q-head buffer and no atomics — the result is the same
 // from run to run.  K and V of the tile are staged once per block;
 // each q tile's q (pre-scaled) and dO are staged once per visit.
+//
+// C' reads the key in slot j at position kvpos[b, j], in any order: the
+// block loads its 16 positions once, and skips a q tile iff the tile's
+// largest position is below their minimum (C skips it iff it is below
+// the tile's first slot); each pair is masked by kvpos <= q position.
+// LSE is the caller's GLOBAL log-sum-exp and delta comes from the final
+// merged O, so dK and dV are complete for the chunk's keys.
 //
 // Bound on this card: 4 products of 2·D flops per valid (query, key)
 // pair per head.  At the train shape (B = 8, L = 384, H = Hkv = 8,
@@ -57,6 +67,7 @@ struct DkvParams {
     const void* v;
     const void* dout;
     const int* qpos;
+    const int* kvpos;  // C' only: [B, Lk] positions of the kv slots
     const float* lse;
     const float* delta;
     void* dk;
@@ -72,10 +83,10 @@ constexpr size_t smem_bytes() {
     return sizeof(float) * (2 * size_t(BKV) * (D + 4) +
                             2 * size_t(BQ) * (D + 4) +
                             2 * size_t(BQ) * (BKV + 1) + 2 * BQ) +
-           sizeof(int) * BQ;
+           sizeof(int) * (BQ + BKV);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KvPos>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(DkvParams p) {
     constexpr int DP = D + 4;                     // padded row stride
     constexpr int SP = BKV + 1;
@@ -93,6 +104,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(DkvParams p) {
     float* sL = sS + BQ * SP;                        // [BQ] LSE
     float* sD = sL + BQ;                             // [BQ] delta
     int* sPos = reinterpret_cast<int*>(sD + BQ);
+    int* sKvPos = sPos + BQ;  // C': positions of the block's kv slots
 
     const int j0 = blockIdx.x * BKV;
     const int hk = blockIdx.y;
@@ -108,6 +120,20 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(DkvParams p) {
         const bool in = kj < p.Lk;
         sK[j * DP + d] = in ? orion::to_f(kb[kj * p.skl + d]) : 0.f;
         sV[j * DP + d] = in ? orion::to_f(vb[kj * p.svl + d]) : 0.f;
+    }
+    // The smallest position among the block's keys: a q tile whose
+    // largest position is below it has every pair masked.
+    int kv_lo = j0;
+    if constexpr (KvPos) {
+        if (tid < BKV) {
+            const int kj = j0 + tid;
+            sKvPos[tid] = kj < p.Lk ? p.kvpos[(long long)b * p.Lk + kj]
+                                    : INT_MAX;
+        }
+        __syncthreads();
+        kv_lo = INT_MAX;
+#pragma unroll
+        for (int j = 0; j < BKV; ++j) kv_lo = min(kv_lo, sKvPos[j]);
     }
 
     // Score pass: thread -> pair (si, sj).  Update pass: thread -> kv
@@ -139,7 +165,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(DkvParams p) {
             int qmax = INT_MIN;
 #pragma unroll
             for (int i = 0; i < BQ; ++i) qmax = max(qmax, sPos[i]);
-            if (qmax < j0) continue;  // every pair masked (block-uniform)
+            if (qmax < kv_lo) continue;  // every pair masked (block-uniform)
 
             for (int e = tid; e < BQ * D; e += NT) {
                 const int i = e / D, d = e % D;
@@ -162,7 +188,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(DkvParams p) {
                 dp += oo.x * vv.x + oo.y * vv.y + oo.z * vv.z + oo.w * vv.w;
             }
             const int kj = j0 + sj;
-            const bool valid = kj < p.Lk && kj <= sPos[si];
+            const int kp = KvPos ? sKvPos[sj] : kj;  // the key's position
+            const bool valid = kj < p.Lk && kp <= sPos[si];
             const float pr = valid ? expf(s - sL[si]) : 0.f;
             sP[si * SP + sj] = pr;
             sS[si * SP + sj] = valid ? pr * (dp - sD[si]) : 0.f;
@@ -204,26 +231,34 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(DkvParams p) {
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KvPos>
 int launch(const DkvParams& p, cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>,
+        flash_bwd_dkv_kernel<T, D, KvPos>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((p.Lk + BKV - 1) / BKV, p.Hkv, p.B);
-    flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+    flash_bwd_dkv_kernel<T, D, KvPos><<<grid, NT, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KvPos>
 int dispatch_d(int D, const DkvParams& p, cudaStream_t stream) {
     switch (D) {
-        case 64: return launch<T, 64>(p, stream);
-        case 128: return launch<T, 128>(p, stream);
-        case 256: return launch<T, 256>(p, stream);
+        case 64: return launch<T, 64, KvPos>(p, stream);
+        case 128: return launch<T, 128, KvPos>(p, stream);
+        case 256: return launch<T, 256, KvPos>(p, stream);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+template <bool KvPos>
+int dispatch(int dtype, int D, const DkvParams& p, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return dispatch_d<float, KvPos>(D, p, s);
+    if (dtype == 1) return dispatch_d<__nv_bfloat16, KvPos>(D, p, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -240,11 +275,27 @@ extern "C" int orion_flash_bwd_dkv(
     long long skgb, long long skgl, long long skgh,
     long long svgb, long long svgl, long long svgh,
     float scale, int dtype, void* stream) {
-    DkvParams p{q, k, v, dout, qpos, lse, delta, dk, dv, B, Lq, Lk, H, Hkv,
-                sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+    DkvParams p{q, k, v, dout, qpos, nullptr, lse, delta, dk, dv, B, Lq, Lk,
+                H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
                 sob, sol, soh, skgb, skgl, skgh, svgb, svgl, svgh, scale};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return dispatch_d<float>(D, p, s);
-    if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);
-    return (int)cudaErrorInvalidValue;
+    return dispatch<false>(dtype, D, p, stream);
+}
+
+// Kernel C': as orion_flash_bwd_dkv, with the kv slots at positions
+// kvpos [B, Lk] (int32, contiguous) and lse the global LSE.
+extern "C" int orion_flash_chunk_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const int* qpos, const int* kvpos, const float* lse, const float* delta,
+    void* dk, void* dv, int B, int Lq, int Lk, int H, int Hkv, int D,
+    long long sqb, long long sql, long long sqh,
+    long long skb, long long skl, long long skh,
+    long long svb, long long svl, long long svh,
+    long long sob, long long sol, long long soh,
+    long long skgb, long long skgl, long long skgh,
+    long long svgb, long long svgl, long long svgh,
+    float scale, int dtype, void* stream) {
+    DkvParams p{q, k, v, dout, qpos, kvpos, lse, delta, dk, dv, B, Lq, Lk,
+                H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+                sob, sol, soh, skgb, skgl, skgh, svgb, svgl, svgh, scale};
+    return dispatch<true>(dtype, D, p, stream);
 }

@@ -1,10 +1,13 @@
 // Kernel B, flash_bwd_dq: the dQ half of the causal flash-attention
-// backward, for training.
+// backward, for training; and kernel B', flash_chunk_bwd_dq, its
+// ring-chunk form over explicit kv positions (KvPos = true).
 //
 // Replaces: orion_tpu/ops/pallas/flash_attention.py, _dq_call (its
 // kernel body _dq_kernel), reached through flash_attention_gqa's
 // custom_vjp (_vjp_bwd -> _bwd_impl) — the form without explicit kv
-// positions (slot j holds absolute position j).
+// positions (slot j holds absolute position j) — and, as B', _dq_call
+// with kv positions and clamp=False, reached through flash_chunk_grads
+// for ring attention's backward.
 //
 // Semantics: with qs = q * scale, for each query row i of head h and
 // each kv slot j <= q_position(i) of kv head h / (H / Hkv):
@@ -22,6 +25,14 @@
 // of 32 slots only up to the tile's causal frontier, max(q_positions)
 // + 1 (the Pallas kernel's _block_extents).  It reads the public
 // [B, L, H, D] layout through strides.
+//
+// B' reads the key in slot j at position kvpos[b, j], in any order: the
+// block visits every kv tile, loads its 32 positions and skips it
+// (no K or V load) iff their minimum exceeds the q tile's largest
+// position; each pair is masked by kvpos <= q position.  LSE is the
+// caller's GLOBAL log-sum-exp over every ring chunk and delta comes
+// from the final merged O, so P = exp(s - LSE) is this chunk's exact
+// share of the global attention and a masked pair adds exactly 0.
 //
 // Bound on this card: 3 products of 2·D flops per valid (query, key)
 // pair per head.  At the train shape (B = 8, L = 384, H = 8, D = 256,
@@ -52,6 +63,7 @@ struct DqParams {
     const void* v;
     const void* dout;
     const int* qpos;
+    const int* kvpos;  // B' only: [B, Lk] positions of the kv slots
     const float* lse;
     const float* delta;
     void* dq;
@@ -66,10 +78,10 @@ constexpr size_t smem_bytes() {
     return sizeof(float) * (2 * size_t(BQ) * (D + 4) +
                             2 * size_t(BKV) * (D + 4) +
                             size_t(BQ) * (BKV + 1) + 2 * BQ) +
-           sizeof(int) * BQ;
+           sizeof(int) * (BQ + BKV);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KvPos>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(DqParams p) {
     constexpr int DP = D + 4;                     // padded row stride
     constexpr int SP = BKV + 1;
@@ -86,6 +98,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(DqParams p) {
     float* sL = sS + BQ * SP;                        // [BQ] LSE
     float* sD = sL + BQ;                             // [BQ] delta
     int* sPos = reinterpret_cast<int*>(sD + BQ);
+    int* sKvPos = sPos + BQ;  // B': positions of the current kv tile
 
     const int q0 = blockIdx.x * BQ;
     const int h = blockIdx.y;
@@ -119,8 +132,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(DqParams p) {
     int qmax = INT_MIN;
 #pragma unroll
     for (int i = 0; i < BQ; ++i) qmax = max(qmax, sPos[i]);
-    // Causal frontier: kv slots > qmax are masked for every row.
-    const int kv_end = qmax < 0 ? 0 : min(p.Lk, qmax + 1);
+    // Causal frontier: kv slots > qmax are masked for every row.  B'
+    // has none (its positions lie in any order) and tests each tile.
+    const int kv_end = KvPos ? p.Lk : (qmax < 0 ? 0 : min(p.Lk, qmax + 1));
 
     const int c0 = tid % CSPAN;
     const int r0 = (tid / CSPAN) * RPT;
@@ -131,6 +145,21 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(DqParams p) {
         for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
 
     for (int j0 = 0; j0 < kv_end; j0 += BKV) {
+        if constexpr (KvPos) {
+            if (tid < BKV) {
+                const int kj = j0 + tid;
+                sKvPos[tid] = kj < p.Lk ? p.kvpos[(long long)b * p.Lk + kj]
+                                        : INT_MAX;
+            }
+            __syncthreads();
+            int kvmin = INT_MAX;
+#pragma unroll
+            for (int j = 0; j < BKV; ++j) kvmin = min(kvmin, sKvPos[j]);
+            if (kvmin > qmax) {  // every pair masked (block-uniform)
+                __syncthreads();  // sKvPos is read before it is rewritten
+                continue;
+            }
+        }
         for (int e = tid; e < BKV * D; e += NT) {
             const int j = e / D, d = e % D;
             const int kj = j0 + j;
@@ -161,10 +190,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(DqParams p) {
             }
         }
         const int kj = j0 + lane;
+        const int kp = KvPos ? sKvPos[lane] : kj;  // the key's position
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
             const int row = warp * 4 + r;
-            const bool valid = kj < p.Lk && kj <= sPos[row];
+            const bool valid = kj < p.Lk && kp <= sPos[row];
             sS[row * SP + lane] =
                 valid ? expf(s[r] - sL[row]) * (dp[r] - sD[row]) : 0.f;
         }
@@ -198,26 +228,34 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(DqParams p) {
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KvPos>
 int launch(const DqParams& p, cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>,
+        flash_bwd_dq_kernel<T, D, KvPos>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((p.Lq + BQ - 1) / BQ, p.H, p.B);
-    flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+    flash_bwd_dq_kernel<T, D, KvPos><<<grid, NT, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KvPos>
 int dispatch_d(int D, const DqParams& p, cudaStream_t stream) {
     switch (D) {
-        case 64: return launch<T, 64>(p, stream);
-        case 128: return launch<T, 128>(p, stream);
-        case 256: return launch<T, 256>(p, stream);
+        case 64: return launch<T, 64, KvPos>(p, stream);
+        case 128: return launch<T, 128, KvPos>(p, stream);
+        case 256: return launch<T, 256, KvPos>(p, stream);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+template <bool KvPos>
+int dispatch(int dtype, int D, const DqParams& p, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return dispatch_d<float, KvPos>(D, p, s);
+    if (dtype == 1) return dispatch_d<__nv_bfloat16, KvPos>(D, p, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -233,11 +271,26 @@ extern "C" int orion_flash_bwd_dq(
     long long sob, long long sol, long long soh,
     long long sgb, long long sgl, long long sgh,
     float scale, int dtype, void* stream) {
-    DqParams p{q, k, v, dout, qpos, lse, delta, dq, B, Lq, Lk, H, Hkv,
-               sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+    DqParams p{q, k, v, dout, qpos, nullptr, lse, delta, dq, B, Lq, Lk, H,
+               Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
                sob, sol, soh, sgb, sgl, sgh, scale};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return dispatch_d<float>(D, p, s);
-    if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);
-    return (int)cudaErrorInvalidValue;
+    return dispatch<false>(dtype, D, p, stream);
+}
+
+// Kernel B': as orion_flash_bwd_dq, with the kv slots at positions
+// kvpos [B, Lk] (int32, contiguous) and lse the global LSE.
+extern "C" int orion_flash_chunk_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const int* qpos, const int* kvpos, const float* lse, const float* delta,
+    void* dq, int B, int Lq, int Lk, int H, int Hkv, int D,
+    long long sqb, long long sql, long long sqh,
+    long long skb, long long skl, long long skh,
+    long long svb, long long svl, long long svh,
+    long long sob, long long sol, long long soh,
+    long long sgb, long long sgl, long long sgh,
+    float scale, int dtype, void* stream) {
+    DqParams p{q, k, v, dout, qpos, kvpos, lse, delta, dq, B, Lq, Lk, H,
+               Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+               sob, sol, soh, sgb, sgl, sgh, scale};
+    return dispatch<true>(dtype, D, p, stream);
 }

@@ -1,9 +1,12 @@
 // Kernel A, flash_fwd: causal flash-attention forward with an online
-// softmax, for prefill.
+// softmax, for prefill; and kernel A', flash_chunk_fwd, its ring-chunk
+// form over explicit kv positions (the same template, KvPos = true).
 //
 // Replaces: orion_tpu/ops/pallas/flash_attention.py, _fwd (its kernel
 // body _fwd_kernel), reached through flash_attention_gqa — the form
-// without explicit kv positions (slot j holds absolute position j).
+// without explicit kv positions (slot j holds absolute position j) —
+// and, as A', _fwd with use_kvpos=True and clamp=False, reached through
+// flash_chunk_fwd for ring attention (orion_tpu/parallel/longctx.py).
 //
 // Semantics: the query at absolute position p attends to kv slot j iff
 // j <= p; query head h reads kv head h / (H / Hkv) (GQA, no repeat_kv).
@@ -20,6 +23,18 @@
 // prefill over a gathered page table most of Lk lies past every row's
 // position).  It reads the public [B, L, H, D] layout through strides,
 // so the caller makes no transpose copies.
+//
+// A' reads the key in slot j at position kvpos[b, j], which may lie
+// in any order (rotated zigzag chunks), so no frontier bounds the loop:
+// the block visits every kv tile, loads its 32 positions first and
+// skips the tile, without loading K or V, iff its smallest position
+// exceeds the q tile's largest (the Pallas kernel's kvmin > qmax test).
+// Each element is masked by kvpos <= q position.  A row with no valid
+// key in the chunk keeps m = -1e30 and l = 0 and ends with O = 0 and
+// LSE ~ -1e30, the neutral element of the ring's merge.  At the ring
+// slice's chunks (B = 4 shards, 2,048 queries against 2,048 keys,
+// D = 256) a chunk does ~2,000 flops per byte it must move, so its
+// least time is set by operations, not bytes.
 //
 // Bound on this card: the work is 4·D flops per valid (query, key)
 // pair.  At the slice's prefill shapes (B = 8, Lq = 512, Lk = 640,
@@ -49,6 +64,7 @@ struct FlashParams {
     const void* k;
     const void* v;
     const int* qpos;
+    const int* kvpos;  // A' only: [B, Lk] positions of the kv slots
     void* o;
     float* lse;
     int B, Lq, Lk, H, Hkv;
@@ -61,10 +77,10 @@ constexpr size_t smem_bytes() {
     return sizeof(float) * (size_t(BQ) * (D + 4) + size_t(BKV) * (D + 4) +
                             size_t(BKV) * D + size_t(BQ) * (BKV + 1) +
                             3 * BQ) +
-           sizeof(int) * BQ;
+           sizeof(int) * (BQ + BKV);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KvPos>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
     constexpr int DP = D + 4;                     // padded row stride
     constexpr int SP = BKV + 1;
@@ -81,6 +97,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
     float* sL = sM + BQ;
     float* sA = sL + BQ;
     int* sPos = reinterpret_cast<int*>(sA + BQ);
+    int* sKvPos = sPos + BQ;  // A': positions of the current kv tile
 
     const int q0 = blockIdx.x * BQ;
     const int h = blockIdx.y;
@@ -111,8 +128,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
     int qmax = INT_MIN;
 #pragma unroll
     for (int i = 0; i < BQ; ++i) qmax = max(qmax, sPos[i]);
-    // Causal frontier: kv slots > qmax are masked for every row.
-    const int kv_end = qmax < 0 ? 0 : min(p.Lk, qmax + 1);
+    // Causal frontier: kv slots > qmax are masked for every row.  A'
+    // has none (its positions lie in any order) and tests each tile.
+    const int kv_end = KvPos ? p.Lk : (qmax < 0 ? 0 : min(p.Lk, qmax + 1));
 
     const int c0 = tid % CSPAN;
     const int r0 = (tid / CSPAN) * RPT;
@@ -123,6 +141,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
         for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
 
     for (int j0 = 0; j0 < kv_end; j0 += BKV) {
+        if constexpr (KvPos) {
+            if (tid < BKV) {
+                const int kj = j0 + tid;
+                sKvPos[tid] = kj < p.Lk ? p.kvpos[(long long)b * p.Lk + kj]
+                                        : INT_MAX;
+            }
+            __syncthreads();
+            int kvmin = INT_MAX;
+#pragma unroll
+            for (int j = 0; j < BKV; ++j) kvmin = min(kvmin, sKvPos[j]);
+            if (kvmin > qmax) {  // every pair masked (block-uniform)
+                __syncthreads();  // sKvPos is read before it is rewritten
+                continue;
+            }
+        }
         for (int e = tid; e < BKV * D; e += NT) {
             const int j = e / D, d = e % D;
             const int kj = j0 + j;
@@ -149,10 +182,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
             }
         }
         const int kj = j0 + lane;
+        const int kp = KvPos ? sKvPos[lane] : kj;  // the key's position
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
             const int row = warp * 4 + r;
-            const bool valid = kj < p.Lk && kj <= sPos[row];
+            const bool valid = kj < p.Lk && kp <= sPos[row];
             const float sv = valid ? s[r] : -INFINITY;
             const float m_old = sM[row];
             const float m_new = fmaxf(m_old, orion::warp_max(sv));
@@ -207,26 +241,34 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KvPos>
 int launch(const FlashParams& p, cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<T, D, KvPos>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((p.Lq + BQ - 1) / BQ, p.H, p.B);
-    flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+    flash_fwd_kernel<T, D, KvPos><<<grid, NT, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KvPos>
 int dispatch_d(int D, const FlashParams& p, cudaStream_t stream) {
     switch (D) {
-        case 64: return launch<T, 64>(p, stream);
-        case 128: return launch<T, 128>(p, stream);
-        case 256: return launch<T, 256>(p, stream);
+        case 64: return launch<T, 64, KvPos>(p, stream);
+        case 128: return launch<T, 128, KvPos>(p, stream);
+        case 256: return launch<T, 256, KvPos>(p, stream);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+template <bool KvPos>
+int dispatch(int dtype, int D, const FlashParams& p, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return dispatch_d<float, KvPos>(D, p, s);
+    if (dtype == 1) return dispatch_d<__nv_bfloat16, KvPos>(D, p, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -240,11 +282,26 @@ extern "C" int orion_flash_fwd(
     long long svb, long long svl, long long svh,
     long long sob, long long sol, long long soh,
     float scale, int dtype, void* stream) {
-    FlashParams p{q, k, v, qpos, o, lse, B, Lq, Lk, H, Hkv,
+    FlashParams p{q, k, v, qpos, nullptr, o, lse, B, Lq, Lk, H, Hkv,
                   sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
                   sob, sol, soh, scale};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return dispatch_d<float>(D, p, s);
-    if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);
-    return (int)cudaErrorInvalidValue;
+    return dispatch<false>(dtype, D, p, stream);
+}
+
+// Kernel A': as orion_flash_fwd, with the kv slots at positions
+// kvpos [B, Lk] (int32, contiguous); lse is required.
+extern "C" int orion_flash_chunk_fwd(
+    const void* q, const void* k, const void* v, const int* qpos,
+    const int* kvpos, void* o, float* lse, int B, int Lq, int Lk, int H,
+    int Hkv, int D,
+    long long sqb, long long sql, long long sqh,
+    long long skb, long long skl, long long skh,
+    long long svb, long long svl, long long svh,
+    long long sob, long long sol, long long soh,
+    float scale, int dtype, void* stream) {
+    if (lse == nullptr) return (int)cudaErrorInvalidValue;
+    FlashParams p{q, k, v, qpos, kvpos, o, lse, B, Lq, Lk, H, Hkv,
+                  sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+                  sob, sol, soh, scale};
+    return dispatch<true>(dtype, D, p, stream);
 }

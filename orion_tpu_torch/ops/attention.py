@@ -58,7 +58,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is not read); otherwise the reference einsum over ``mask``.
     ``"reference"``: always the reference.  ``mask`` None means the
     positional causal mask built from ``q_positions``.
+
+    Sequence-parallel impls, for Lq > 1 inside
+    ``orion_tpu_torch.parallel.sequence_parallel(ring)`` with the
+    activations sharded on the sequence (they raise outside one, and
+    without ``q_positions``; ``mask`` is not read): ``"ring"`` — k and
+    v rotate around the ring through kernels A′/B′/C′, the keys at the
+    queries' own positions; ``"ulysses"`` — the all-to-all head/sequence
+    swap around kernel A.  Lq == 1 takes the reference, as in the JAX
+    package.
     """
+    if impl in ("ring", "ulysses") and q.shape[1] > 1:
+        if q_positions is None:
+            raise ValueError(f"{impl} attention requires q_positions")
+        from orion_tpu_torch.parallel.longctx import (active_ring,
+                                                      ring_attention,
+                                                      ulysses_attention)
+        ring = active_ring(impl)
+        if impl == "ring":
+            return ring_attention(q, k, v, q_positions, q_positions, scale,
+                                  ring)
+        return ulysses_attention(q, k, v, q_positions, scale, ring)
     if (impl == "auto" and q.is_cuda and q.shape[1] > 1
             and q_positions is not None):
         from orion_tpu_torch.ops.flash_attention import flash_attention_gqa

@@ -13,6 +13,15 @@ profiler, so the two always run the same work.
   sharing its prompt pages), 4 minibatches of 8, lr 1e-6, clip 1.0, KL
   0.05, rewarded by the share of even token ids.
 
+- Long context (``chip_smoke.py``'s longctx phase, ``python3 -m
+  orion_tpu_torch.profile_longctx``): one training
+  step of a Pythia-1B-width model at full depth (f32 master weights
+  from seed 0, bf16 compute) on one sequence of 8,192 token ids drawn
+  from a numpy seed, each token's target the next id, mean
+  cross-entropy; sequence parallel over a ring of 4 shards in zigzag
+  layout (chunks of 1,024, 2,048 tokens a shard) with
+  ``attention_impl="ring"``, against the same step dense.
+
 ``int8=True`` gives each mix's int8 serving twin (the engine phase's
 ``engine_int8``, the train phase's ``train_int8``, the profilers'
 ``--int8``): the same mix with ``quantize_weights=True,
@@ -21,12 +30,18 @@ quantize_kv=True`` — int8 Dense weights and int8 KV pools (kernel D').
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from orion_tpu_torch.config import (GRPOConfig, ModelConfig,
                                     OptimizerConfig, RolloutConfig)
 from orion_tpu_torch.device import torch_dtype
 from orion_tpu_torch.models import Transformer
+from orion_tpu_torch.parallel import StackedRing, sequence_parallel
 from orion_tpu_torch.rollout.continuous import ContinuousBatchingEngine
 from orion_tpu_torch.trainers import GRPOTrainer
 
@@ -102,3 +117,48 @@ def smoke_trainer_and_prompts(seed: int = 0, device="cuda",
     prompts = prompt_batches(cfg.rollout_batch_size, mc.vocab_size,
                              cfg.rollout.max_prompt_len, seed)
     return cfg, trainer, prompts
+
+
+LONGCTX_LEN = 8192
+LONGCTX_RING = 4
+
+
+def longctx_loss(model, ids: torch.Tensor, targets: torch.Tensor,
+                 ring: Optional[StackedRing] = None) -> torch.Tensor:
+    """Mean cross-entropy of ``model``'s logits for ids [B, L] at
+    positions 0..L-1 against ``targets`` [B, L].  With ``ring``, ids,
+    positions and targets are laid out zigzag over the ring and the
+    model (``attention_impl="ring"``) runs inside
+    ``sequence_parallel(ring)``; the mean over the shards' tokens is the
+    mean over the sequence."""
+    B, L = ids.shape
+    pos = torch.arange(L, device=ids.device)[None].expand(B, L)
+    if ring is None:
+        logits = model(ids, pos)
+    else:
+        with sequence_parallel(ring):
+            logits = model(ring.shard(ids), ring.shard(pos))
+        targets = ring.shard(targets)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def smoke_longctx(seed: int = 0, device="cuda") -> tuple:
+    """The long-context mix: ``(cfg, model, dense, ids, targets,
+    ring)`` — the ring model (f32 masters from seed 0,
+    ``attention_impl="ring"``), its dense twin (the same weights with
+    ``attention_impl="auto"``), one sequence of ``LONGCTX_LEN`` ids
+    [1, L] from ``seed`` with the next id as each token's target, and
+    the ring of ``LONGCTX_RING`` shards."""
+    cfg = dataclasses.replace(ModelConfig.pythia_1b(),
+                              attention_impl="ring")
+    dtype = torch_dtype(cfg.param_dtype)
+    model = Transformer(cfg, device=device, dtype=dtype, seed=0)
+    dense = Transformer(dataclasses.replace(cfg, attention_impl="auto"),
+                        device=device, dtype=dtype)
+    dense.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(seed)
+    seq = torch.from_numpy(rng.randint(1, cfg.vocab_size, LONGCTX_LEN + 1))
+    seq = seq.to(model.embed.weight.device)[None]
+    return (cfg, model, dense, seq[:, :-1], seq[:, 1:],
+            StackedRing(LONGCTX_RING))

@@ -11,7 +11,12 @@ plain version, no worse than 2x the bf16 plain version's error (both
 compute in f32 from the same bf16 inputs; only the output rounding and
 the summation order differ).  Model gradients through kernels A, B and
 C: within 1e-4 of their largest entry of the same f32 model with the
-plain (reference) attention.
+plain (reference) attention.  Kernels A′, B′ and C′ (ring chunks over
+explicit kv positions) are held the same way on the rows that have a
+valid key; on the others O and dQ must be exactly 0 and LSE <= -1e29.
+Ring attention on the card: output within F32_ATOL of the
+dense-per-chunk ring, gradients within 1e-4 of their largest entry of
+autograd through it.
 """
 
 import numpy as np
@@ -21,7 +26,8 @@ import torch
 from orion_tpu_torch.ops.flash_attention import (
     flash_attention_backward_reference, flash_attention_delta,
     flash_attention_gqa, flash_attention_reference, flash_bwd_dkv,
-    flash_bwd_dq)
+    flash_bwd_dq, flash_chunk_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_fwd,
+    flash_chunk_fwd_reference, flash_chunk_grads, flash_chunk_grads_reference)
 from orion_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_int8,
     paged_decode_attention_reference)
@@ -205,6 +211,144 @@ def test_model_grads_through_kernels_match_reference():
         r = grads["reference"][n]
         tol = 1e-4 * r.abs().max().item()
         assert (g - r).abs().max().item() <= tol, n
+
+
+CHUNK = [
+    # ring size S, rows per rank B, sequence L, H, Hkv, D, rotations,
+    # kv positions shuffled within each row
+    (4, 1, 256, 4, 2, 256, 1, False),
+    (4, 2, 128, 8, 8, 128, 2, False),
+    (2, 1, 96, 8, 2, 64, 1, False),   # 24-token chunks straddle tiles
+    (4, 1, 128, 4, 4, 64, 3, True),
+]
+
+
+def _chunk_case(shape, dtype):
+    """One ring chunk on the card, stacked over the ranks: rank r's
+    zigzag q positions against the keys of rank r - rotations, and a
+    global LSE at or above the chunk's (finite on every row, as after a
+    whole ring) with a merged O and dO."""
+    from orion_tpu_torch.parallel import zigzag_order
+
+    S, B, L, H, Hkv, D, rot, shuffle = shape
+    rng = np.random.RandomState(L + D + rot)
+    per = zigzag_order(L, S).reshape(S, L // S)
+    qpos = np.repeat(per, B, axis=0)
+    kvpos = np.repeat(np.roll(per, rot, axis=0), B, axis=0)
+    if shuffle:
+        kvpos = np.stack([rng.permutation(row) for row in kvpos])
+    n, Ls = S * B, L // S
+    q, k, v, out, dout = (
+        torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda().to(dtype)
+        for s in ((n, Ls, H, D), (n, Ls, Hkv, D), (n, Ls, Hkv, D),
+                  (n, Ls, H, D), (n, Ls, H, D)))
+    qpos, kvpos = (torch.from_numpy(x.astype(np.int32)).cuda()
+                   for x in (qpos, kvpos))
+    has_key = (kvpos[:, None, :] <= qpos[:, :, None]).any(-1)
+    _, lse = flash_chunk_fwd_reference(q.float(), k.float(), v.float(),
+                                       qpos, kvpos, D ** -0.5)
+    bump = torch.from_numpy(rng.rand(n, H, Ls).astype(np.float32)).cuda()
+    glse = torch.where(has_key[:, None, :], lse + bump, bump)
+    return q, k, v, qpos, kvpos, out, dout, glse, has_key, D ** -0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CHUNK, ids=lambda s: "x".join(
+    str(int(x)) for x in s))
+def test_chunk_kernels_match_plain(shape, dtype):
+    """A′ (O, LSE), B′ (dq) and C′ (dk, dv) against their plain versions
+    on the same inputs; rows without a valid key give O = 0, LSE <=
+    -1e29 and dQ = 0."""
+    q, k, v, qpos, kvpos, out_g, dout, glse, has_key, scale = \
+        _chunk_case(shape, dtype)
+    counts = [fn.launches for fn in (flash_chunk_fwd, flash_chunk_bwd_dq,
+                                     flash_chunk_bwd_dkv, flash_attention_gqa,
+                                     flash_bwd_dq, flash_bwd_dkv)]
+    out, lse = flash_chunk_fwd(q, k, v, qpos, kvpos, scale)
+    grads = flash_chunk_grads(q, k, v, qpos, kvpos, out_g, glse, dout, scale)
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in (flash_chunk_fwd, flash_chunk_bwd_dq,
+                                    flash_chunk_bwd_dkv, flash_attention_gqa,
+                                    flash_bwd_dq, flash_bwd_dkv)]
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 0, 0, 0]
+    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
+    plain_out, _ = flash_chunk_fwd_reference(q, k, v, qpos, kvpos, scale)
+    ref_out, ref_lse = flash_chunk_fwd_reference(
+        q.float(), k.float(), v.float(), qpos, kvpos, scale)
+    _assert_close(out[has_key], plain_out[has_key], ref_out[has_key], dtype)
+    assert (out[~has_key] == 0).all()
+    rows = lse.transpose(1, 2)
+    assert (rows[~has_key] <= -1e29).all()
+    assert (rows[has_key] - ref_lse.transpose(1, 2)[has_key]).abs().max() \
+        <= 1e-3
+    plain = flash_chunk_grads_reference(q, k, v, qpos, kvpos, out_g, glse,
+                                        dout, scale)
+    ref = flash_chunk_grads_reference(q.float(), k.float(), v.float(), qpos,
+                                      kvpos, out_g.float(), glse,
+                                      dout.float(), scale)
+    for got, pl, rf in zip(grads, plain, ref):
+        _assert_close(got, pl, rf, dtype)
+    assert (grads[0][~has_key] == 0).all()
+
+
+def test_chunk_kernels_read_strided_inputs():
+    """q/k/v views with non-packed batch/sequence strides go through A′,
+    B′ and C′ without copies."""
+    from orion_tpu_torch.parallel import zigzag_order
+
+    rng = np.random.RandomState(4)
+    big = torch.from_numpy(rng.randn(4, 40, 6, 64).astype(np.float32)).cuda()
+    q, k, v = big[:, :32, 0:2], big[:, 4:36, 2:4], big[:, 8:40, 4:6]
+    per = torch.from_numpy(zigzag_order(128, 4).reshape(4, 32).astype(
+        np.int32)).cuda()
+    kvpos = per.roll(1, dims=0)
+    out, lse = flash_chunk_fwd(q, k, v, per, kvpos, 0.125)
+    ref, ref_lse = flash_chunk_fwd_reference(q, k, v, per, kvpos, 0.125)
+    assert (out - ref).abs().max().item() <= F32_ATOL
+    dout = torch.from_numpy(rng.randn(4, 32, 2, 64).astype(np.float32)).cuda()
+    glse = torch.clamp(ref_lse, min=0.0) + 1.0
+    got = flash_chunk_grads(q, k, v, per, kvpos, ref, glse, dout, 0.125)
+    want = flash_chunk_grads_reference(q, k, v, per, kvpos, ref, glse, dout,
+                                       0.125)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= F32_ATOL
+
+
+def test_ring_attention_on_card_matches_reference():
+    """ring_attention on a StackedRing(4) on the card goes through A′, B′
+    and C′ only (4 launches each), and its output and q/k/v gradients
+    agree with the dense-per-chunk ring under autograd."""
+    from orion_tpu_torch.parallel import (StackedRing, ring_attention,
+                                          ring_attention_reference)
+
+    ring = StackedRing(4)
+    rng = np.random.RandomState(6)
+    B, L, H, Hkv, D = 2, 256, 4, 2, 64
+    x = {n: torch.from_numpy(rng.randn(B, L, h, D).astype(np.float32))
+         .cuda() for n, h in (("q", H), ("k", Hkv), ("v", Hkv), ("do", H))}
+    pos = ring.shard(torch.arange(L, device="cuda")[None].expand(B, L))
+    grads = {}
+    for name, fn in (("ring", ring_attention),
+                     ("reference", ring_attention_reference)):
+        leaves = [ring.shard(x[n]).requires_grad_() for n in "qkv"]
+        counts = [f.launches for f in (flash_chunk_fwd, flash_chunk_bwd_dq,
+                                       flash_chunk_bwd_dkv,
+                                       flash_attention_gqa)]
+        out = fn(*leaves, pos, pos, D ** -0.5, ring)
+        g = torch.autograd.grad(out, leaves, ring.shard(x["do"]))
+        torch.cuda.synchronize()
+        after = [f.launches for f in (flash_chunk_fwd, flash_chunk_bwd_dq,
+                                      flash_chunk_bwd_dkv,
+                                      flash_attention_gqa)]
+        grads[name] = (out.detach(), *g)
+        if name == "ring":
+            assert [b - a for a, b in zip(counts, after)] == [4, 4, 4, 0]
+    assert (grads["ring"][0] - grads["reference"][0]).abs().max().item() \
+        <= F32_ATOL
+    for got, want in zip(grads["ring"][1:], grads["reference"][1:]):
+        tol = 1e-4 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol
 
 
 PAGED = [

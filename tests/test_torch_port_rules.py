@@ -47,7 +47,7 @@ def test_port_imports_nothing_of_jax_or_orion_tpu():
     assert {f"orion_tpu_torch/{m}.py" for m in (
         "trainers/base", "trainers/grpo", "algos/advantages", "algos/kl",
         "algos/losses", "ops/logprobs", "ops/quant",
-        "rollout/engine")} <= scanned
+        "rollout/engine", "parallel/__init__", "parallel/longctx")} <= scanned
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
            for p in files for line, mod in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -158,6 +158,66 @@ def test_flash_output_carries_the_autograd_function():
     for fn in (flash_bwd_dq, flash_bwd_dkv):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(*(t.to("meta") for t in (q, q, q, pos, q, lse, lse)), 0.3)
+
+
+def test_chunk_wrappers_take_plain_version_only_on_cpu():
+    """Kernels A′, B′ and C′'s wrappers: CPU tensors run the plain
+    versions and launch nothing; any other device type is refused."""
+    from orion_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(2)
+    q = torch.from_numpy(rng.randn(1, 4, 2, 8).astype(np.float32))
+    qpos = torch.arange(4, dtype=torch.int32)[None]
+    kvpos = qpos.flip(1) + 1
+    kernels = (fa.flash_chunk_fwd, fa.flash_chunk_bwd_dq,
+               fa.flash_chunk_bwd_dkv)
+    counts = [fn.launches for fn in kernels]
+    out, lse = fa.flash_chunk_fwd(q, q, q, qpos, kvpos, 0.3)
+    assert (out[0, 0] == 0).all() and (lse[0, :, 0] < -1e29).all()
+    grads = fa.flash_chunk_grads(q, q, q, qpos, kvpos, out, lse, q, 0.3)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert [fn.launches for fn in kernels] == counts
+    meta = [t.to("meta") for t in (q, qpos, kvpos, lse)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_chunk_fwd(meta[0], meta[0], meta[0], meta[1], meta[2], 0.3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_chunk_grads(meta[0], meta[0], meta[0], meta[1], meta[2],
+                             meta[0], meta[3], meta[0], 0.3)
+
+
+def test_ring_needs_a_device_and_an_active_ring(no_cuda):
+    """The ring model and ring attention never carry on on the CPU
+    unasked, and attention(impl="ring" | "ulysses") raises outside a
+    sequence_parallel block (or without positions)."""
+    from orion_tpu_torch.config import ModelConfig
+    from orion_tpu_torch.models import Transformer
+    from orion_tpu_torch.ops.attention import attention
+    from orion_tpu_torch.parallel import (StackedRing, ring_attention,
+                                          sequence_parallel)
+    from orion_tpu_torch.parallel.longctx import active_ring
+
+    cfg = ModelConfig.tiny("neox", dtype="float32", attention_impl="ring")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(cfg)
+    q = torch.zeros(4, 2, 2, 8, device="meta")
+    pos = torch.zeros(4, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ring_attention(q, q, q, pos, pos, 0.3, StackedRing(4))
+    q = torch.zeros(4, 2, 2, 8)
+    pos = torch.zeros(4, 2, dtype=torch.int32)
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(RuntimeError, match="needs an active ring"):
+            attention(q, q, q, None, 0.3, impl=impl, q_positions=pos)
+        with sequence_parallel(StackedRing(2)):
+            with pytest.raises(ValueError, match="requires q_positions"):
+                attention(q, q, q, None, 0.3, impl=impl)
+    outer, inner = StackedRing(2), StackedRing(4)
+    with sequence_parallel(outer):
+        with sequence_parallel(inner):
+            assert active_ring("ring") is inner
+        assert active_ring("ring") is outer
+    with pytest.raises(RuntimeError, match="needs an active ring"):
+        active_ring("ring")
 
 
 def _run_smoke(cwd):
