@@ -9,12 +9,14 @@ printing one JSON line:
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — the CUDA kernels (one ``nvcc`` per source, all started
-   together) and the native page scheduler, with their build seconds.
+   together) and the native page scheduler, with their build seconds
+   and each kernel instance's registers and spills (``-Xptxas -v``).
 3. ``kernels`` — each kernel against its plain PyTorch version on the
    card (bf16 queries; bf16 pools for D, int8 pools for D') at the
-   serving, training and long-context slices' shapes, with times and
-   bounds; the ring chunks A', B' and C' at zigzag positions after one
-   rotation, so that some tiles and rows have no valid key.
+   serving, training and long-context slices' shapes, with device
+   times (``torch.profiler``) and bounds; the ring chunks A', B' and
+   C' at zigzag positions after one rotation, so that some tiles and
+   rows have no valid key.
 4. ``engine``  — the continuous-batching engine at Pythia-1B width
    (random seeded weights, bf16) serves 64 greedy requests; kernels A
    and D launch exactly as often as the waves and steps imply; 4
@@ -124,19 +126,32 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the durations of the CUDA
+    kernels and copies that ``reps`` calls launch, from a
+    ``torch.profiler`` trace, summed and divided by ``reps``.  The
+    host's time between launches (Python, a wrapper's checks) is not in
+    it, so at small shapes it reads the kernels, not the caller."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # Kernel and copy events only: an operator's entry would count its
+    # kernels' time a second time.
+    us = sum(max(getattr(ev, "device_time_total", 0),
+                 getattr(ev, "self_device_time_total", 0))
+             for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False))
+    check(us > 0, "time_ms: the profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -1161,8 +1176,13 @@ def main() -> int:
         path = cuda_build._library_path(name) + ".ptxas.txt"
         if os.path.exists(path):
             with open(path) as f:
-                ptxas[name] = [ln.strip() for ln in f
-                               if "registers" in ln or "spill" in ln]
+                # Each instance's mangled name, then its spill and
+                # register lines.
+                ptxas[name] = [
+                    ln.split("'")[1] if "entry function" in ln
+                    else ln.strip() for ln in f
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernel_seconds": kernel_s,
           "scheduler": "native" if sched_box["native"] else "python",

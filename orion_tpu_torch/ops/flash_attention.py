@@ -14,10 +14,13 @@ as reached by ``flash_chunk_fwd`` (A′) and ``flash_chunk_grads`` (B′,
 C′), where the key in slot j sits at an arbitrary position
 ``kv_positions[b, j]``.  At the slices' shapes the least time on this
 card is set by bytes for A, B and C (~140 flops per byte for A, under
-the bf16 balance point) and by operations for the long ring chunks;
-the first versions compute on the CUDA cores, far above either bound,
-and skip every tile that no query of the q tile can see — see each
-source's header for its design.
+the bf16 balance point) and by operations for the long ring chunks.
+A and A′ in bf16 run both products on the tensor cores (``wgmma``)
+over tiles loaded by ``cp.async``, so their bf16 q, k and v must be
+16-byte aligned in base and strides (the wrapper raises otherwise);
+in f32, and for B, C, B′ and C′, the kernels compute on the CUDA
+cores.  All skip every tile that no query of the q tile can see — see
+each source's header for its design.
 
 Each wrapper runs the plain version only for CPU tensors; for a CUDA
 tensor it launches its kernel or raises.
@@ -212,6 +215,20 @@ def _kernel_ready(name, q, k, v, *others) -> None:
         raise ValueError(f"{name} kernel: head dim must be contiguous")
 
 
+def _check_aligned(name, q, k, v) -> None:
+    """Kernels A and A′ read bf16 q, k and v in 16-byte units
+    (``cp.async``): each base address and each batch, sequence and head
+    stride must be a multiple of 16 bytes.  Raises rather than copying."""
+    if q.dtype != torch.bfloat16:
+        return
+    for which, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{name} kernel: bf16 {which} needs a 16-byte aligned base "
+                f"and batch/sequence/head strides that are multiples of 8 "
+                f"elements (strides {tuple(t.stride())})")
+
+
 def _positions(*positions):
     """The position operands as the kernels read them: contiguous
     int32, the kv positions left out when there are none."""
@@ -237,8 +254,9 @@ def _launch(q, k, v, q_positions, scale, with_lse, kv_positions=None):
     """Run kernel A, or A′ with ``kv_positions``, on CUDA tensors;
     raises on anything it does not take."""
     chunk = kv_positions is not None
-    _kernel_ready("flash_chunk_fwd" if chunk else "flash_fwd", q, k, v,
-                  q_positions, kv_positions)
+    name = "flash_chunk_fwd" if chunk else "flash_fwd"
+    _kernel_ready(name, q, k, v, q_positions, kv_positions)
+    _check_aligned(name, q, k, v)
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     pos = _positions(q_positions, kv_positions)

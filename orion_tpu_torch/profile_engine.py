@@ -26,10 +26,10 @@ import time
 
 # Kernel-name classes, first match wins.
 CLASSES = (
-    ("flash_chunk_fwd", r"flash_fwd_kernel<.*true>"),
+    ("flash_chunk_fwd", r"flash_fwd_(wgmma_)?kernel<.*true>"),
     ("flash_chunk_bwd_dq", r"flash_bwd_dq_kernel<.*true>"),
     ("flash_chunk_bwd_dkv", r"flash_bwd_dkv_kernel<.*true>"),
-    ("flash_fwd", r"flash_fwd_kernel"),
+    ("flash_fwd", r"flash_fwd_(wgmma_)?kernel"),
     ("flash_bwd_dq", r"flash_bwd_dq_kernel"),
     ("flash_bwd_dkv", r"flash_bwd_dkv_kernel"),
     ("paged_decode_int8", r"paged_decode_kernel<.*true>"),

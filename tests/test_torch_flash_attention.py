@@ -49,6 +49,19 @@ CASES = [
     ("gqa", (2, 12, 20, 4, 2, 16), None),
     ("verify_5_vs_388", (2, 5, 388, 2, 2, 16), [383, 117]),
     ("head_dim_64", (1, 8, 16, 2, 1, 64), None),
+    # Tile edges of the card kernel (64-row warpgroup tiles, 128-row q
+    # tiles, 64-slot kv tiles), at small D.
+    ("len_1", (2, 1, 1, 2, 2, 16), [0, 0]),
+    ("len_63", (2, 63, 63, 2, 2, 16), [0, 0]),
+    ("len_64", (1, 64, 64, 2, 2, 16), [0]),
+    ("len_65_gqa4", (2, 65, 65, 4, 1, 16), [0, 0]),
+    ("len_129", (1, 129, 129, 2, 2, 16), [0]),
+    ("q1_vs_129_gqa4", (2, 1, 129, 4, 1, 16), [128, 64]),
+    ("q65_vs_129", (2, 65, 129, 2, 2, 16), None),
+    # Slots 0..127 visible to every row, 128..199 straddle the rows'
+    # frontiers.
+    ("visible_beside_straddling", (1, 64, 200, 2, 2, 16), [136]),
+    ("head_dim_128_len_65", (1, 65, 65, 2, 2, 128), [0]),
 ]
 
 
@@ -67,6 +80,29 @@ def test_plain_matches_jax_flash(name, shape, offsets):
     # On CPU tensors the wrapper IS the plain version.
     np.testing.assert_array_equal(
         flash_attention_gqa(tq, tk, tv, tp, scale).numpy(), got.numpy())
+
+
+def test_q_tile_without_key_matches_jax():
+    """Row 0's 129 queries all sit before every key (two whole card q
+    tiles without a key), row 1's first 64: the port gives O = 0 and
+    LSE <= -1e29 there; rows with a key agree with the JAX kernel.  (The
+    JAX kernel gives mean(V) on a keyless row when its Pallas tile holds
+    a row with a key; ROADMAP §3.)"""
+    shape = (2, 129, 65, 2, 2, 16)
+    q, k, v, pos = _inputs(*shape, seed=5, offsets=[-200, -64])
+    scale = 0.25
+    expect = np.asarray(jax_flash_attention_gqa(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        scale))
+    got, lse = flash_attention_reference(
+        *(torch.from_numpy(x) for x in (q, k, v, pos)), scale,
+        return_lse=True)
+    has_key = pos >= 0
+    assert has_key.any() and not has_key[0].any()
+    np.testing.assert_allclose(got.numpy()[has_key], expect[has_key],
+                               rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got.numpy()[~has_key], 0.0)
+    assert (lse.numpy().transpose(0, 2, 1)[~has_key] <= -1e29).all()
 
 
 def test_plain_lse_matches_numpy_logsumexp():

@@ -5,6 +5,12 @@ so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
+Kernels A and A′ in bf16 run on the tensor cores (``wgmma``) over
+64-row warpgroup tiles, 128-row q tiles and 64-slot kv tiles, so their
+cases include lengths 1, 63, 64, 65 and 129, each head dim, GQA g = 4,
+q tiles without any key and kv tiles that straddle the frontier; f32
+keeps the CUDA-core body.
+
 Tolerances: f32 kernels atol 1e-4 (f32 sums in another order over up
 to a few hundred keys).  bf16 kernels: against an f32 evaluation of the
 plain version, no worse than 2x the bf16 plain version's error (both
@@ -65,6 +71,21 @@ FLASH = [
     (2, 33, 33, 2, 2, 128, [0, 0]),
     (3, 5, 388, 8, 8, 256, [383, 0, 200]),
     (2, 64, 80, 8, 2, 64, None),
+    # Tile edges of the bf16 kernel (64-row warpgroup tiles, 128-row q
+    # tiles, 64-slot kv tiles) at each head dim, GQA g = 4 among them.
+    (2, 1, 1, 2, 2, 64, [0, 0]),
+    (2, 63, 63, 8, 2, 128, [0, 0]),
+    (2, 64, 64, 2, 2, 256, [0, 0]),
+    (2, 65, 65, 8, 2, 64, [0, 0]),
+    (2, 129, 129, 4, 4, 128, [0, 0]),
+    (2, 1, 129, 4, 1, 256, [128, 64]),
+    (2, 65, 129, 4, 1, 128, None),
+    (2, 129, 65, 2, 2, 256, [-64, 0]),
+    # Row 0's two q tiles have no key at all (positions < 0), row 1's
+    # first warpgroup neither.
+    (2, 129, 65, 4, 1, 64, [-200, -64]),
+    # Slots 0..127 visible to every query, 128..199 straddle.
+    (1, 64, 200, 4, 2, 128, [136]),
 ]
 
 
@@ -220,6 +241,12 @@ CHUNK = [
     (4, 2, 128, 8, 8, 128, 2, False),
     (2, 1, 96, 8, 2, 64, 1, False),   # 24-token chunks straddle tiles
     (4, 1, 128, 4, 4, 64, 3, True),
+    # Zigzag chunks at the bf16 kernel's tile edges: 64, 66 and 130
+    # tokens a rank (one kv tile, one past it, two past it), GQA g = 4.
+    (4, 1, 256, 4, 1, 128, 1, False),
+    (4, 1, 264, 8, 2, 256, 2, False),
+    (4, 1, 520, 4, 1, 64, 1, False),
+    (2, 1, 260, 8, 8, 128, 1, True),
 ]
 
 
@@ -290,6 +317,128 @@ def test_chunk_kernels_match_plain(shape, dtype):
     for got, pl, rf in zip(grads, plain, ref):
         _assert_close(got, pl, rf, dtype)
     assert (grads[0][~has_key] == 0).all()
+
+
+CHUNK_EDGES = [
+    # B, Lq, Lk, H, Hkv, D: A′ alone, positions drawn without repeats
+    # from range(Lq + Lk), so tiles mix visible and invisible keys.
+    (2, 1, 1, 2, 2, 64),
+    (2, 63, 65, 8, 2, 128),
+    (2, 64, 129, 4, 1, 256),
+    (2, 129, 63, 4, 4, 64),
+    (1, 65, 64, 2, 2, 256),
+]
+
+
+def _chunk_edge_inputs(shape, dtype, seed):
+    B, Lq, Lk, H, Hkv, D = shape
+    rng = np.random.RandomState(seed)
+    qpos = np.stack([rng.permutation(Lq + Lk)[:Lq] for _ in range(B)])
+    kvpos = np.stack([rng.permutation(Lq + Lk)[:Lk] for _ in range(B)])
+    qpos[0, 0] = -1  # a row with no valid key
+    kvpos[-1, 0] = qpos[-1].max()  # and one with a key
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+               .to(dtype)
+               for s in ((B, Lq, H, D), (B, Lk, Hkv, D), (B, Lk, Hkv, D)))
+    qpos, kvpos = (torch.from_numpy(x.astype(np.int32)).cuda()
+                   for x in (qpos, kvpos))
+    return q, k, v, qpos, kvpos, D ** -0.5
+
+
+def _check_chunk_fwd(q, k, v, qpos, kvpos, scale, dtype):
+    before = flash_chunk_fwd.launches
+    out, lse = flash_chunk_fwd(q, k, v, qpos, kvpos, scale)
+    torch.cuda.synchronize()
+    assert flash_chunk_fwd.launches == before + 1
+    has_key = (kvpos[:, None, :] <= qpos[:, :, None]).any(-1)
+    plain, _ = flash_chunk_fwd_reference(q, k, v, qpos, kvpos, scale)
+    ref, ref_lse = flash_chunk_fwd_reference(q.float(), k.float(), v.float(),
+                                             qpos, kvpos, scale)
+    _assert_close(out[has_key], plain[has_key], ref[has_key], dtype)
+    assert not has_key.all() and (out[~has_key] == 0).all()
+    rows = lse.transpose(1, 2)
+    assert (rows[~has_key] <= -1e29).all()
+    assert (rows[has_key] - ref_lse.transpose(1, 2)[has_key]).abs().max() \
+        <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CHUNK_EDGES, ids=lambda s: "x".join(
+    str(x) for x in s))
+def test_chunk_fwd_kernel_at_tile_edges(shape, dtype):
+    """A′ alone against its plain version at lengths around its tiles,
+    keys in no order; rows without a valid key give O = 0, LSE <=
+    -1e29."""
+    _check_chunk_fwd(*_chunk_edge_inputs(shape, dtype, sum(shape)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_chunk_fwd_kernel_long_chunk(dtype):
+    """A chunk of 1,026 kv tiles: the bf16 kernel keeps every tile's
+    position range in shared memory sized from the tile count, skips
+    the tiles no query sees and masks the late, early-position slots;
+    the result still matches."""
+    B, Lq, Lk, H, D = 1, 64, 1024 * 64 + 65, 1, 64
+    rng = np.random.RandomState(9)
+    qpos = np.sort(rng.permutation(Lk)[:Lq])
+    kvpos = rng.permutation(Lk)
+    kvpos[-70:] = rng.randint(0, 20, 70)  # late slots, early positions
+    qpos[0] = -1
+    q, k, v = (torch.from_numpy(rng.randn(B, L, H, D).astype(np.float32))
+               .cuda().to(dtype) for L in (Lq, Lk, Lk))
+    qpos, kvpos = (torch.from_numpy(x[None].astype(np.int32)).cuda()
+                   for x in (qpos, kvpos))
+    _check_chunk_fwd(q, k, v, qpos, kvpos, D ** -0.5, dtype)
+
+
+def test_flash_forward_kernels_are_deterministic():
+    """The bf16 forward kernels use no atomics and a fixed order: two
+    launches on the same inputs give bitwise the same O and LSE."""
+    B, Lq, Lk, H, Hkv, D, _ = FLASH[0]
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+               .bfloat16()
+               for s in ((B, Lq, H, D), (B, Lk, Hkv, D), (B, Lk, Hkv, D)))
+    pos = torch.arange(Lk - Lq, Lk, dtype=torch.int32,
+                       device="cuda")[None].repeat(B, 1)
+    first = flash_attention_gqa(q, k, v, pos, 0.1, return_lse=True)
+    second = flash_attention_gqa(q, k, v, pos, 0.1, return_lse=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    q, k, v, qpos, kvpos, scale = _chunk_edge_inputs(CHUNK_EDGES[2],
+                                                     torch.bfloat16, 4)
+    first = flash_chunk_fwd(q, k, v, qpos, kvpos, scale)
+    second = flash_chunk_fwd(q, k, v, qpos, kvpos, scale)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_forward_kernels_refuse_misaligned_bf16_views():
+    """The bf16 kernels read q, k and v in 16-byte units: a view whose
+    base or head stride is not a multiple of 16 bytes raises (it is not
+    copied behind the caller's back); the same views in f32 run."""
+    pos = torch.arange(8, dtype=torch.int32, device="cuda")[None]
+    wide = torch.randn(1, 8, 2, 68, device="cuda")
+    flat = torch.randn(1 * 8 * 2 * 64 + 4, device="cuda")
+    views = {
+        "head stride 68": lambda t: t[..., :64],
+        "base offset 8 bytes": lambda t: t[4:].view(1, 8, 2, 64),
+    }
+    for what, make in views.items():
+        src = wide if what.startswith("head") else flat
+        bad = make(src.bfloat16())
+        ok = torch.randn(1, 8, 2, 64, device="cuda").bfloat16()
+        for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                flash_attention_gqa(*args, pos, 0.125)
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                flash_chunk_fwd(*args, pos, pos, 0.125)
+        f32 = make(src)
+        out = flash_attention_gqa(f32, f32, f32, pos, 0.125)
+        ref = flash_attention_reference(f32, f32, f32, pos, 0.125)
+        assert (out - ref).abs().max().item() <= F32_ATOL
 
 
 def test_chunk_kernels_read_strided_inputs():

@@ -110,9 +110,31 @@ def _chunk_case(name):
         H, Hkv = 4, 2
         rows = [_rank_positions(64, S, r, 1) for r in (1, 3)]
         qpos, kvpos = (np.stack(x) for x in zip(*rows))
-    else:  # "odd_unordered": odd lengths, keys in no order
+    elif name == "odd_unordered":  # odd lengths, keys in no order
         qpos = np.stack([rng.permutation(20)[:13] for _ in range(2)])
         kvpos = np.stack([rng.randint(0, 24, 11) for _ in range(2)])
+    # Tile edges of the card kernel A′ (64-row warpgroup tiles, 128-row
+    # q tiles, 64-slot kv tiles).
+    elif name == "len_1":
+        qpos, kvpos = np.array([[0], [5]]), np.array([[0], [3]])
+    elif name == "len_63_vs_65":
+        qpos = np.stack([rng.permutation(200)[:63] for _ in range(2)])
+        kvpos = np.stack([rng.permutation(200)[:65] for _ in range(2)])
+    elif name == "len_64_gqa4":
+        H, Hkv = 4, 1
+        rows = [_rank_positions(128, 2, r, 1) for r in (0, 1)]
+        qpos, kvpos = (np.stack(x) for x in zip(*rows))
+    elif name == "len_129":
+        qpos = np.stack([np.arange(129) + 64, np.arange(129)])
+        kvpos = np.stack([np.arange(129)] * 2)
+    elif name == "visible_beside_straddling":
+        # Slots 0..127 visible to every query, the rest straddle; row 1
+        # holds the same keys in no order.
+        qpos = np.stack([np.arange(64) + 136] * 2)
+        kvpos = np.stack([np.arange(200), rng.permutation(200)])
+    else:  # "zigzag_tile_edges": 130-token chunks after one rotation
+        rows = [_rank_positions(520, S, r, 1) for r in (0, 2)]
+        qpos, kvpos = (np.stack(x) for x in zip(*rows))
     B, Lq, Lk = qpos.shape[0], qpos.shape[1], kvpos.shape[1]
     q = rng.randn(B, Lq, H, D).astype(np.float32)
     k = rng.randn(B, Lk, Hkv, D).astype(np.float32)
@@ -121,7 +143,8 @@ def _chunk_case(name):
 
 
 CHUNK_CASES = ["contiguous", "zigzag_rotated", "all_future", "gqa",
-               "odd_unordered"]
+               "odd_unordered", "len_1", "len_63_vs_65", "len_64_gqa4",
+               "len_129", "visible_beside_straddling", "zigzag_tile_edges"]
 
 
 @pytest.mark.parametrize("name", CHUNK_CASES)
@@ -133,7 +156,8 @@ def test_chunk_fwd_plain_matches_jax(name):
     out, lse = flash_chunk_fwd_reference(*_t(q, k, v, qpos, kvpos), scale)
     out, lse = out.numpy(), lse.numpy()
     has_key = (kvpos[:, None, :] <= qpos[:, :, None]).any(-1)   # [B, Lq]
-    if name in ("zigzag_rotated", "all_future"):
+    if name in ("zigzag_rotated", "all_future", "len_64_gqa4",
+                "zigzag_tile_edges"):
         assert not has_key.all()
     np.testing.assert_allclose(out[has_key], j_out[has_key], rtol=0,
                                atol=ATOL)

@@ -5,11 +5,15 @@
 - entry points never carry on on the CPU unasked: with no CUDA device
   and no explicit ``device="cpu"`` they raise, a kernel build without
   nvcc raises (every time — a failure is never memoised into a quiet
-  fallback), and chip_smoke.py exits non-zero and prints no result.
+  fallback), and chip_smoke.py exits non-zero and prints no result;
+- kernels A and A′ (``csrc/flash_fwd.cu``) compute both products of
+  their bf16 instances with ``wgmma`` on the tensor cores, keep the
+  CUDA-core body for f32 only, and call no library kernel.
 """
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -237,3 +241,49 @@ def test_chip_smoke_fails_without_card(no_cuda, tmp_path):
     res = _run_smoke(alone)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _function_body(src, signature):
+    """The text of the brace-delimited body that follows ``signature``."""
+    start = src.index("{", src.index(signature))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(f"unbalanced braces after {signature}")
+
+
+def test_flash_fwd_bf16_runs_both_products_on_wgmma():
+    with open(os.path.join(REPO, "orion_tpu_torch", "csrc", "flash_fwd.cu"),
+              encoding="utf-8") as f:
+        src = f.read()
+    code = re.sub(r"//[^\n]*", "", src)       # comments may name anything
+    # S = Q·Kᵀ and O += P·V: each wrapper issues wgmma.mma_async, S with
+    # both operands in shared memory, P·V with P from registers at
+    # N = D for every head dim.
+    ss = _function_body(code, "void wgmma_ss_n64(")
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in ss
+    for n in (64, 128, 256):
+        rs = _function_body(code, f"void wgmma_rs_n{n}(")
+        assert (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+                in rs)
+        assert '"r"(a[0])' in rs           # the A operand from registers
+    pv = _function_body(code, "void wgmma_pv(")
+    assert all(f"wgmma_rs_n{n}(" in pv for n in (64, 128, 256))
+    body = _function_body(code, "flash_fwd_wgmma_kernel(FlashParams p)")
+    assert "wgmma_ss_n64(" in body and "wgmma_pv<D>(" in body
+    assert "cp_async16(" in body and "fence_proxy_async()" in body
+    # The f32 body stays on the CUDA cores; dtype 1 (bf16) reaches only
+    # the wgmma launch, dtype 0 (f32) only the CUDA-core one.
+    f32 = _function_body(code, "flash_fwd_kernel(FlashParams p)")
+    assert "wgmma" not in f32
+    dispatch = _function_body(code, "int dispatch(")
+    f32_branch, bf16_branch = dispatch.split("dtype == 1")
+    assert "launch_f32" in f32_branch and "launch_wgmma" not in f32_branch
+    assert "launch_wgmma" in bf16_branch and "launch_f32" not in bf16_branch
+    # No library kernel: only the port's own header and the C headers.
+    assert set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', src)) == {
+        "climits", "common.cuh"}
+    assert not re.search(r"cublas|cudnn|cutlass|cute::|thrust|cub::|at::|"
+                         r"torch|flash_attn", code, re.IGNORECASE)
