@@ -10,7 +10,8 @@ printing one JSON line:
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — the CUDA kernels (one ``nvcc`` per source, all started
    together) and the native page scheduler, with their build seconds
-   and each kernel instance's registers and spills (``-Xptxas -v``).
+   and each kernel instance's registers and spills (``-Xptxas -v``);
+   a tensor-core (``wgmma``) instance that spills fails it.
 3. ``kernels`` — each kernel against its plain PyTorch version on the
    card (bf16 queries; bf16 pools for D, int8 pools for D') at the
    serving, training and long-context slices' shapes, with device
@@ -1187,6 +1188,13 @@ def main() -> int:
           "kernel_seconds": kernel_s,
           "scheduler": "native" if sched_box["native"] else "python",
           "ptxas": ptxas})
+    # The tensor-core bodies (A, A', B, B') keep every accumulator in
+    # registers: an instance that spills fails the build phase.
+    for name, lines in ptxas.items():
+        for entry, spill in zip(lines, lines[1:]):
+            if "wgmma_kernel" in entry:
+                check(spill.startswith("0 bytes stack frame, 0 bytes spill"),
+                      f"build: {name} instance {entry} spills: {spill}")
 
     flash = [flash_case("pythia_prefill", 8, 512, 640, 8, 8, 256, 1),
              flash_case("llama_gqa", 4, 256, 320, 32, 8, 64, 2),

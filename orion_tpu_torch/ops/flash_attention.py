@@ -15,12 +15,13 @@ C′), where the key in slot j sits at an arbitrary position
 ``kv_positions[b, j]``.  At the slices' shapes the least time on this
 card is set by bytes for A, B and C (~140 flops per byte for A, under
 the bf16 balance point) and by operations for the long ring chunks.
-A and A′ in bf16 run both products on the tensor cores (``wgmma``)
-over tiles loaded by ``cp.async``, so their bf16 q, k and v must be
-16-byte aligned in base and strides (the wrapper raises otherwise);
-in f32, and for B, C, B′ and C′, the kernels compute on the CUDA
-cores.  All skip every tile that no query of the q tile can see — see
-each source's header for its design.
+A, A′, B and B′ in bf16 run all their products on the tensor cores
+(``wgmma``) over tiles loaded by ``cp.async``, so their bf16 q, k and
+v must be 16-byte aligned in base and strides (the wrapper raises
+otherwise; B and B′ copy an unaligned dO); in f32, and for C and C′,
+the kernels compute on the CUDA cores.  All skip every tile that no
+query of the q tile can see — see each source's header for its
+design.
 
 Each wrapper runs the plain version only for CPU tensors; for a CUDA
 tensor it launches its kernel or raises.
@@ -215,14 +216,21 @@ def _kernel_ready(name, q, k, v, *others) -> None:
         raise ValueError(f"{name} kernel: head dim must be contiguous")
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    """Base address and batch, sequence and head strides of a bf16
+    [B, L, H, D] tensor all multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0
+                                          for s in t.stride()[:3])
+
+
 def _check_aligned(name, q, k, v) -> None:
-    """Kernels A and A′ read bf16 q, k and v in 16-byte units
+    """Kernels A, A′, B and B′ read bf16 q, k and v in 16-byte units
     (``cp.async``): each base address and each batch, sequence and head
     stride must be a multiple of 16 bytes.  Raises rather than copying."""
     if q.dtype != torch.bfloat16:
         return
     for which, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        if not _aligned(t):
             raise ValueError(
                 f"{name} kernel: bf16 {which} needs a 16-byte aligned base "
                 f"and batch/sequence/head strides that are multiples of 8 "
@@ -300,6 +308,9 @@ def _launch_dq(q, k, v, q_positions, kv_positions, dout, lse, delta, scale):
     name = "flash_chunk_bwd_dq" if chunk else "flash_bwd_dq"
     dout, pos, lse, delta = _backward_operands(
         name, q, k, v, q_positions, kv_positions, dout, lse, delta)
+    _check_aligned(name, q, k, v)
+    if dout.dtype == torch.bfloat16 and not _aligned(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -3,13 +3,15 @@
     python3 orion_tpu_torch/pair_trees.py OTHER_TREE [--paths]
 
 OTHER_TREE is another checkout of this repo (a ``git archive`` of the
-parent commit, say).  Runs the ``kernels`` cases of A and A′ from each
-tree's own ``chip_smoke.py`` in the order other, this, this, other, one
-process each, all timed by this checkout's ``chip_smoke.time_ms``
-(device time from ``torch.profiler``), so the two trees' kernels are
-read by one method on one card in one call.  The ring cases also time
-B′ and C′, and every case its plain version and SDPA: in trees where
-those did not change they are the pairing's control.  With
+parent commit, say).  Runs the ``kernels`` cases of A and A′, of B and
+C (train, GQA and ragged shapes) and of the ring chunks (A′, B′, C′)
+from each tree's own ``chip_smoke.py`` in the order other, this, this,
+other, one process each, all timed by this checkout's
+``chip_smoke.time_ms`` (device time from ``torch.profiler``), so the
+two trees' kernels are read by one method on one card in one call.
+Every case also times its plain version and SDPA, and the kernels a
+change did not touch: in trees where those did not change they are
+the pairing's control.  With
 ``--paths``, each run then serves the bf16 engine phase and runs the
 GRPO and int8 GRPO phases, and reports their walls.  Prints one JSON
 line a run.  Needs one CUDA card.
@@ -29,14 +31,17 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLASH = (("pythia_prefill", 8, 512, 640, 8, 8, 256, 1),
          ("llama_gqa", 4, 256, 320, 32, 8, 64, 2),
          ("verify", 8, 5, 388, 8, 8, 256, 3))
+BWD = (("pythia_train", 8, 384, 384, 8, 8, 256, None, 6),
+       ("llama_gqa", 4, 256, 256, 32, 8, 64, None, 7),
+       ("odd_ragged", 4, 389, 397, 8, 8, 256, 8, 8))
 CHUNK = (("pythia_ring", 4, 1, 8192, 8, 8, 256, 11),
          ("llama_gqa_ring", 4, 1, 4096, 32, 8, 64, 12))
 KEYS = ("ms", "plain_ms", "library_ms", "max_abs_err")
 
 
 def run_tree(tree: str, paths: bool) -> dict:
-    """The A and A′ cases of ``tree``'s chip_smoke, timed here; with
-    ``paths`` its serving and GRPO phases too."""
+    """The A, B/C and ring-chunk cases of ``tree``'s chip_smoke, timed
+    here; with ``paths`` its serving and GRPO phases too."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
     here = importlib.util.module_from_spec(spec)
@@ -48,10 +53,16 @@ def run_tree(tree: str, paths: bool) -> dict:
     cs.time_ms = here.time_ms
     cuda_build.build()
     card = here.nvidia_smi()
-    out = {"tree": tree, "card": card, "flash_fwd": {}, "flash_chunk": {}}
+    out = {"tree": tree, "card": card, "flash_fwd": {}, "flash_bwd": {},
+           "flash_chunk": {}}
     for case in FLASH:
         res = cs.flash_case(*case)
         out["flash_fwd"][case[0]] = {k: res[k] for k in KEYS}
+    for case in BWD:
+        res = cs.flash_bwd_case(*case)
+        out["flash_bwd"][case[0]] = {
+            kname: {k: res[kname][k] for k in KEYS}
+            for kname in ("flash_bwd_dq", "flash_bwd_dkv")}
     for case in CHUNK:
         res = cs.chunk_case(*case)
         out["flash_chunk"][case[0]] = {

@@ -9,7 +9,10 @@ Kernels A and A′ in bf16 run on the tensor cores (``wgmma``) over
 64-row warpgroup tiles, 128-row q tiles and 64-slot kv tiles, so their
 cases include lengths 1, 63, 64, 65 and 129, each head dim, GQA g = 4,
 q tiles without any key and kv tiles that straddle the frontier; f32
-keeps the CUDA-core body.
+keeps the CUDA-core body.  Kernels B and B′ in bf16 run their three
+products on the tensor cores over the same 128-row q tiles and kv
+tiles of 32 slots at D = 256 (64 below), so their own cases sit at
+those edges, with keyless rows and whole kv tiles skipped.
 
 Tolerances: f32 kernels atol 1e-4 (f32 sums in another order over up
 to a few hundred keys).  bf16 kernels: against an f32 evaluation of the
@@ -462,6 +465,175 @@ def test_chunk_kernels_read_strided_inputs():
                                        0.125)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= F32_ATOL
+
+
+DQ_EDGES = [
+    # B, Lq, Lk, H, Hkv, D, offsets (None = random per row): kernel B in
+    # bf16 (128-row q tiles; 32-slot kv tiles at D = 256, 64 below).
+    (2, 1, 33, 2, 2, 256, [32, 0]),
+    (2, 31, 31, 4, 1, 256, [0, 0]),
+    (2, 32, 33, 4, 2, 256, [1, 0]),
+    (2, 65, 97, 8, 2, 256, None),
+    (1, 129, 129, 2, 2, 256, [0]),
+    (2, 64, 64, 8, 2, 128, [0, 0]),
+    (2, 130, 200, 4, 4, 128, None),
+    (2, 63, 65, 8, 2, 64, [2, 0]),
+    (3, 200, 200, 32, 8, 64, [0, 0, 0]),
+    (2, 5, 388, 8, 8, 256, [383, 0]),
+]
+
+
+def _dq_inputs(shape, seed):
+    """bf16 inputs of kernel B alone: positions from ``offsets`` (row 0's
+    first query has no key), LSE from kernel A, and delta from an O drawn
+    apart from the inputs, so that no row's dS is the pure cancellation
+    of a one-key softmax (where any two summation orders of dP disagree
+    in the last bits)."""
+    B, Lq, Lk, H, Hkv, D, offsets = shape
+    rng = np.random.RandomState(seed)
+    if offsets is None:
+        offsets = rng.randint(0, Lk - Lq + 1, B)
+    pos = torch.from_numpy((np.asarray(offsets)[:, None]
+                            + np.arange(Lq)[None, :]).astype(np.int32))
+    pos[0, 0] = -1
+    q, k, v, out, dout = (
+        torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda().bfloat16()
+        for s in ((B, Lq, H, D), (B, Lk, Hkv, D), (B, Lk, Hkv, D),
+                  (B, Lq, H, D), (B, Lq, H, D)))
+    pos = pos.cuda()
+    scale = D ** -0.5
+    _, lse = flash_attention_gqa(q, k, v, pos, scale, return_lse=True)
+    return q, k, v, pos, out, dout, lse, scale
+
+
+@pytest.mark.parametrize("shape", DQ_EDGES, ids=lambda s: "x".join(
+    str(x) for x in s[:6]))
+def test_flash_bwd_dq_kernel_at_tile_edges(shape):
+    """Kernel B in bf16 (wgmma) alone against its plain version at
+    lengths around its tiles, each head dim, GQA g = 4 and ragged
+    Lq != Lk among them; a row with no key gives dQ = 0."""
+    q, k, v, pos, out, dout, lse, scale = _dq_inputs(shape, sum(shape[:6]))
+    delta = flash_attention_delta(out, dout)
+    before = flash_bwd_dq.launches
+    dq = flash_bwd_dq(q, k, v, pos, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq.launches == before + 1
+    plain = flash_attention_backward_reference(q, k, v, pos, out, lse, dout,
+                                               scale)[0]
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), pos, out.float(), lse,
+        dout.float(), scale)[0]
+    _assert_close(dq, plain, ref, torch.bfloat16)
+    assert (dq[0, 0] == 0).all()
+
+
+def _chunk_dq_inputs(shape, seed):
+    """A′'s edge inputs for B′ alone: a global LSE at or above the
+    chunk's (finite on every row) and an O drawn apart from them."""
+    q, k, v, qpos, kvpos, scale = _chunk_edge_inputs(shape, torch.bfloat16,
+                                                     seed)
+    rng = np.random.RandomState(seed + 1)
+    _, lse = flash_chunk_fwd_reference(q.float(), k.float(), v.float(),
+                                       qpos, kvpos, scale)
+    has_key = (kvpos[:, None, :] <= qpos[:, :, None]).any(-1)
+    bump = torch.from_numpy(rng.rand(*lse.shape).astype(np.float32)).cuda()
+    glse = torch.where(has_key[:, None, :], lse + bump, bump)
+    out, dout = (torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+                 .cuda().bfloat16() for _ in range(2))
+    return q, k, v, qpos, kvpos, out, dout, glse, has_key, scale
+
+
+@pytest.mark.parametrize("shape", CHUNK_EDGES + [(2, 33, 97, 4, 1, 256),
+                                                 (1, 130, 300, 8, 2, 128)],
+                         ids=lambda s: "x".join(str(x) for x in s))
+def test_chunk_bwd_dq_kernel_at_tile_edges(shape):
+    """Kernel B′ in bf16 (wgmma) alone against its plain version at
+    lengths around its tiles, keys in no order; rows without a valid key
+    give dQ = 0."""
+    q, k, v, qpos, kvpos, out, dout, glse, has_key, scale = \
+        _chunk_dq_inputs(shape, sum(shape))
+    delta = flash_attention_delta(out, dout)
+    before = flash_chunk_bwd_dq.launches
+    dq = flash_chunk_bwd_dq(q, k, v, qpos, kvpos, dout, glse, delta, scale)
+    torch.cuda.synchronize()
+    assert flash_chunk_bwd_dq.launches == before + 1
+    plain = flash_chunk_grads_reference(q, k, v, qpos, kvpos, out, glse,
+                                        dout, scale)[0]
+    ref = flash_chunk_grads_reference(q.float(), k.float(), v.float(), qpos,
+                                      kvpos, out.float(), glse, dout.float(),
+                                      scale)[0]
+    _assert_close(dq, plain, ref, torch.bfloat16)
+    assert not has_key.all() and (dq[~has_key] == 0).all()
+
+
+def test_chunk_bwd_dq_kernel_skips_whole_tiles():
+    """B′ on a chunk whose kv tiles are mostly invisible: the first 40
+    slots hold positions every query may see, the next 200 positions
+    past every query (whole 32- and 64-slot tiles skipped unloaded), the
+    last 30 early positions again; one query has no key.  Each head
+    dim against the plain version; two launches give bitwise the same
+    dQ."""
+    rng = np.random.RandomState(21)
+    for D in (64, 128, 256):
+        B, Lq, H, Hkv = 2, 70, 4, 2
+        kvpos = np.concatenate([rng.permutation(40) + 10,
+                                1000 + rng.permutation(200),
+                                rng.randint(10, 60, 30)])
+        Lk = kvpos.size
+        qpos = np.sort(rng.randint(50, 120, Lq))
+        qpos[0] = 5  # below every key: no valid key
+        q, k, v, out, dout = (
+            torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+            .bfloat16()
+            for s in ((B, Lq, H, D), (B, Lk, Hkv, D), (B, Lk, Hkv, D),
+                      (B, Lq, H, D), (B, Lq, H, D)))
+        qpos, kvpos = (torch.from_numpy(np.tile(x, (B, 1)).astype(np.int32))
+                       .cuda() for x in (qpos, kvpos))
+        scale = D ** -0.5
+        _, lse = flash_chunk_fwd_reference(q.float(), k.float(), v.float(),
+                                           qpos, kvpos, scale)
+        glse = torch.clamp(lse, min=0.0) + 0.25
+        delta = flash_attention_delta(out, dout)
+        first = flash_chunk_bwd_dq(q, k, v, qpos, kvpos, dout, glse, delta,
+                                   scale)
+        second = flash_chunk_bwd_dq(q, k, v, qpos, kvpos, dout, glse, delta,
+                                    scale)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        plain = flash_chunk_grads_reference(q, k, v, qpos, kvpos, out, glse,
+                                            dout, scale)[0]
+        ref = flash_chunk_grads_reference(
+            q.float(), k.float(), v.float(), qpos, kvpos, out.float(), glse,
+            dout.float(), scale)[0]
+        _assert_close(first, plain, ref, torch.bfloat16)
+        assert (first[:, 0] == 0).all()
+
+
+def test_flash_bwd_dq_kernels_refuse_misaligned_bf16_views():
+    """Kernels B and B′ read bf16 q, k and v in 16-byte units: an
+    unaligned view raises; an unaligned dO is copied and the result
+    matches the plain version."""
+    pos = torch.arange(8, dtype=torch.int32, device="cuda")[None]
+    wide = torch.randn(1, 8, 2, 68, device="cuda").bfloat16()
+    ok = torch.randn(1, 8, 2, 64, device="cuda").bfloat16()
+    bad = wide[..., :64]
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_bwd_dq(*args, pos, ok, lse, lse, 0.125)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_chunk_bwd_dq(*args, pos, pos, ok, lse, lse, 0.125)
+    q, k, v, out = (torch.randn(1, 8, 2, 64, device="cuda").bfloat16()
+                    for _ in range(4))
+    _, lse = flash_attention_gqa(q, k, v, pos, 0.125, return_lse=True)
+    delta = flash_attention_delta(out, bad)
+    dq = flash_bwd_dq(q, k, v, pos, bad, lse, delta, 0.125)
+    plain = flash_attention_backward_reference(q, k, v, pos, out, lse, bad,
+                                               0.125)[0]
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), pos, out.float(), lse, bad.float(),
+        0.125)[0]
+    _assert_close(dq, plain, ref, torch.bfloat16)
 
 
 def test_ring_attention_on_card_matches_reference():

@@ -7,8 +7,9 @@
   nvcc raises (every time — a failure is never memoised into a quiet
   fallback), and chip_smoke.py exits non-zero and prints no result;
 - kernels A and A′ (``csrc/flash_fwd.cu``) compute both products of
-  their bf16 instances with ``wgmma`` on the tensor cores, keep the
-  CUDA-core body for f32 only, and call no library kernel.
+  their bf16 instances with ``wgmma`` on the tensor cores, and kernels B
+  and B′ (``csrc/flash_bwd_dq.cu``) all three of theirs; each keeps its
+  CUDA-core body for f32 only, and none calls a library kernel.
 """
 
 import ast
@@ -254,23 +255,39 @@ def _function_body(src, signature):
     raise AssertionError(f"unbalanced braces after {signature}")
 
 
-def test_flash_fwd_bf16_runs_both_products_on_wgmma():
-    with open(os.path.join(REPO, "orion_tpu_torch", "csrc", "flash_fwd.cu"),
+def _csrc(name):
+    """(source, code without comments) of ``csrc/<name>``."""
+    with open(os.path.join(REPO, "orion_tpu_torch", "csrc", name),
               encoding="utf-8") as f:
         src = f.read()
-    code = re.sub(r"//[^\n]*", "", src)       # comments may name anything
+    return src, re.sub(r"//[^\n]*", "", src)  # comments may name anything
+
+
+# No library kernel: only the port's own header and the C headers.
+_LIBRARY = re.compile(r"cublas|cudnn|cutlass|cute::|thrust|cub::|at::|"
+                      r"torch|flash_attn", re.IGNORECASE)
+
+
+def test_flash_fwd_bf16_runs_both_products_on_wgmma():
+    src, code = _csrc("flash_fwd.cu")
+    # The wgmma wrappers live in the shared header, common.cuh.
+    _, helpers = _csrc("common.cuh")
     # S = Q·Kᵀ and O += P·V: each wrapper issues wgmma.mma_async, S with
     # both operands in shared memory, P·V with P from registers at
     # N = D for every head dim.
-    ss = _function_body(code, "void wgmma_ss_n64(")
+    ss = _function_body(helpers, "void wgmma_ss_n64(")
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in ss
     for n in (64, 128, 256):
-        rs = _function_body(code, f"void wgmma_rs_n{n}(")
+        rs = _function_body(helpers, f"void wgmma_rs_n{n}(")
         assert (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
                 in rs)
         assert '"r"(a[0])' in rs           # the A operand from registers
-    pv = _function_body(code, "void wgmma_pv(")
+    pv = _function_body(helpers, "void wgmma_pv(")
     assert all(f"wgmma_rs_n{n}(" in pv for n in (64, 128, 256))
+    for fn, ptx in (("cp_async16", "cp.async.cg.shared.global"),
+                    ("fence_proxy_async", "fence.proxy.async.shared::cta"),
+                    ("wgmma_fence", "wgmma.fence.sync.aligned")):
+        assert ptx in _function_body(helpers, f"void {fn}(")
     body = _function_body(code, "flash_fwd_wgmma_kernel(FlashParams p)")
     assert "wgmma_ss_n64(" in body and "wgmma_pv<D>(" in body
     assert "cp_async16(" in body and "fence_proxy_async()" in body
@@ -285,5 +302,45 @@ def test_flash_fwd_bf16_runs_both_products_on_wgmma():
     # No library kernel: only the port's own header and the C headers.
     assert set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', src)) == {
         "climits", "common.cuh"}
-    assert not re.search(r"cublas|cudnn|cutlass|cute::|thrust|cub::|at::|"
-                         r"torch|flash_attn", code, re.IGNORECASE)
+    assert not _LIBRARY.search(code) and not _LIBRARY.search(helpers)
+
+
+def test_flash_bwd_dq_bf16_runs_its_products_on_wgmma():
+    """Kernels B and B′ in bf16: S = Q·Kᵀ and dP = dO·Vᵀ on SS wgmma
+    (both operands in shared memory, m64n32 at D = 256 and m64n64
+    below), dQ += dS·K on RS wgmma (dS from registers, N = D), fed by
+    cp.async with the async-proxy fence; f32 keeps the CUDA-core body."""
+    src, code = _csrc("flash_bwd_dq.cu")
+    _, helpers = _csrc("common.cuh")
+    ss = {n: _function_body(helpers, f"void wgmma_ss_n{n}(") for n in (32, 64)}
+    for n, body in ss.items():
+        assert (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+                in body)
+        assert '"l"(da), "l"(db)' in body  # A and B by descriptor
+    sel = _function_body(helpers, "void wgmma_ss(")
+    assert "wgmma_ss_n32(" in sel and "wgmma_ss_n64(" in sel
+    body = _function_body(code, "flash_bwd_dq_wgmma_kernel(DqParams p)")
+    # S and dP: two SS batches over D/16 k-steps, one into s, one into dp.
+    assert body.count("wgmma_ss<BN>(") == 2
+    assert "wgmma_ss<BN>(s," in body and "wgmma_ss<BN>(dp," in body
+    # dQ: the RS form at N = D, dS's two bf16 halves from registers.
+    assert "wgmma_pv<D>(dq, dh" in body and "wgmma_pv<D>(dq, dl" in body
+    assert "cp_async16(" in body and "fence_proxy_async()" in body
+    assert "wgmma_fence()" in body and "wgmma_wait_all()" in body
+    smem = _function_body(code, "struct WgSmem")
+    assert "D == 256 ? 32 : 64" in smem
+    # No atomics: one block owns each dQ row.
+    assert "atomic" not in body
+    # The f32 body stays on the CUDA cores; dtype 1 (bf16) reaches only
+    # the wgmma launch, dtype 0 (f32) only the CUDA-core one.
+    f32 = _function_body(code, "flash_bwd_dq_kernel(DqParams p)")
+    assert "wgmma" not in f32 and "cp_async" not in f32
+    dispatch = _function_body(code, "int dispatch(")
+    f32_branch, bf16_branch = dispatch.split("dtype == 1")
+    assert "launch_f32" in f32_branch and "launch_wgmma" not in f32_branch
+    assert "launch_wgmma" in bf16_branch and "launch_f32" not in bf16_branch
+    launch = _function_body(code, "int launch_wgmma(")
+    assert "flash_bwd_dq_wgmma_kernel<D, KvPos><<<" in launch
+    assert set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', src)) == {
+        "climits", "common.cuh"}
+    assert not _LIBRARY.search(code)
